@@ -1,0 +1,72 @@
+"""``repro`` parameters → the port's parameters.
+
+``repro.models.init_model`` returns a tree whose per-layer weights are
+stacked along a leading L axis under ``"blocks"``.  ``params_from_repro``
+takes that tree with numpy arrays for leaves (the caller converts; this
+module imports no JAX), unstacks the L axis into the port's list of
+per-layer dicts, keeps every weight's (in, out) layout and casts to the
+port's dtype.  It raises if any ``repro`` leaf is left unconsumed, if any
+port parameter is left unset, or if a shape disagrees.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import init_model
+
+
+def _flatten(tree, prefix=()) -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flatten(v, prefix + (k,)))
+        return out
+    return {prefix: tree}
+
+
+def _repro_path(path: tuple) -> tuple:
+    """Port path → (repro path, layer index or None)."""
+    if path[0] == "blocks":
+        return ("blocks",) + path[2:], path[1]
+    return path, None
+
+
+def params_from_repro(tree: dict, cfg: ModelConfig, *,
+                      device="cuda") -> dict:
+    """The port's params for ``cfg`` from ``repro``'s ``init_model`` tree
+    (numpy leaves), on ``device``."""
+    dev = resolve_device(device)
+    template = init_model(cfg, device="meta")
+    src = _flatten(tree)
+    used = set()
+
+    def fill(node, path):
+        if isinstance(node, dict):
+            return {k: fill(v, path + (k,)) for k, v in node.items()}
+        if isinstance(node, list):
+            return [fill(v, path + (i,)) for i, v in enumerate(node)]
+        rpath, layer = _repro_path(path)
+        if rpath not in src:
+            raise KeyError(f"port parameter {'/'.join(map(str, path))} has "
+                           f"no repro leaf {'/'.join(rpath)}")
+        arr = np.asarray(src[rpath], np.float32)
+        if layer is not None:
+            if arr.shape[0] != cfg.num_layers:
+                raise ValueError(f"repro leaf {'/'.join(rpath)} stacks "
+                                 f"{arr.shape[0]} layers, config has "
+                                 f"{cfg.num_layers}")
+            arr = arr[layer]
+        if tuple(arr.shape) != tuple(node.shape):
+            raise ValueError(f"{'/'.join(map(str, path))}: repro shape "
+                             f"{arr.shape}, port shape {tuple(node.shape)}")
+        used.add(rpath)
+        return torch.tensor(arr, dtype=node.dtype, device=dev)
+
+    params = fill(template, ())
+    left = sorted("/".join(p) for p in set(src) - used)
+    if left:
+        raise ValueError(f"repro leaves not consumed by the port: {left}")
+    return params

@@ -1,0 +1,6 @@
+"""Hand-written Hopper kernels and their plain PyTorch versions.
+
+``flash_attention`` — K1, CUDA C++ (``csrc/flash_attention.cu``).
+``ref``             — the plain versions.
+``ops``             — device dispatch between the two.
+"""

@@ -1,0 +1,136 @@
+"""K1 on Hopper: the CUDA flash-attention forward and its ctypes wrapper.
+
+Counterpart of ``repro.kernels.flash_attention`` (``flash_attention_tpu``).
+The kernel is ``csrc/flash_attention.cu``, CUDA C++ for ``sm_90a``; its
+header states what it computes, its bound on the card and its design.
+``nvcc`` builds it at first use into ``build/kernels/`` at the root of the
+checkout, as a shared library with a plain C interface, named by a hash
+of the source so that an edited source is rebuilt.
+
+``flash_attention_cuda`` takes CUDA tensors only; the plain version is
+``kernels.ref.attention_ref`` and ``kernels.ops.flash_attention`` chooses
+between them by the tensors' device.  ``launches`` counts the launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import math
+import os
+import pathlib
+import shutil
+import subprocess
+
+import torch
+
+SOURCE = pathlib.Path(__file__).resolve().parents[1] / "csrc" / \
+    "flash_attention.cu"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HEAD_DIMS = (32, 64, 128)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+launches = 0          # kernel launches since the caller last set it to 0
+build_log = ""        # nvcc's output (ptxas registers / spills per kernel)
+_lib = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = pathlib.Path("/usr/local/cuda/bin/nvcc")
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found on PATH or in /usr/local/cuda/bin; "
+                       "K1 cannot be built")
+
+
+def build() -> ctypes.CDLL:
+    """Compile (if this source has not been built yet) and load K1."""
+    global _lib, build_log
+    if _lib is not None:
+        return _lib
+    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
+    lib_path = BUILD_DIR / f"libflash_attention-{digest}.so"
+    if not lib_path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+            capture_output=True, text=True)
+        build_log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed to build {SOURCE.name}:\n"
+                               f"{build_log}")
+        os.replace(tmp, lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.repro_flash_attention_fwd.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+        + [ctypes.c_float, ctypes.c_void_p])
+    lib.repro_flash_attention_fwd.restype = ctypes.c_int
+    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    _lib = lib
+    return lib
+
+
+def _check(q, k, v):
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda":
+            raise ValueError(f"flash_attention_cuda: {name} is on "
+                             f"{t.device}, not a CUDA device")
+        if t.device != q.device:
+            raise ValueError("flash_attention_cuda: q, k, v are on "
+                             "different devices")
+        if t.dtype != q.dtype:
+            raise TypeError("flash_attention_cuda: q, k, v differ in dtype")
+        if t.ndim != 4:
+            raise ValueError(f"flash_attention_cuda: {name} must be 4-D, "
+                             f"got shape {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention_cuda: {name} must be "
+                             f"contiguous (strides {t.stride()})")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"flash_attention_cuda: dtype {q.dtype} not "
+                        f"supported (float32, bfloat16)")
+    B, H, Tq, hd = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
+        raise ValueError(f"flash_attention_cuda: q {tuple(q.shape)} and "
+                         f"k/v {tuple(k.shape)}/{tuple(v.shape)} disagree")
+    K, Tk = k.shape[1], k.shape[2]
+    if H % K:
+        raise ValueError(f"flash_attention_cuda: {H} query heads are not "
+                         f"a multiple of {K} KV heads")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_cuda: head dim {hd} not in "
+                         f"{HEAD_DIMS}")
+    if min(B, H, Tq, Tk) < 1 or B > 65535 or H > 65535:
+        raise ValueError(f"flash_attention_cuda: sizes out of range "
+                         f"(B={B}, H={H}, Tq={Tq}, Tk={Tk})")
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
+    """q: (B,H,Tq,hd); k, v: (B,K,Tk,hd), contiguous CUDA tensors of one
+    dtype (float32 or bfloat16), hd in {32, 64, 128}.  Returns like q."""
+    global launches
+    _check(q, k, v)
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    lib = build()
+    B, H, Tq, hd = q.shape
+    K, Tk = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.repro_flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, H, K, Tq, Tk, hd, int(causal), int(window),
+            _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(hd), stream)
+    if err != 0:
+        msg = lib.repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {err} ({msg})")
+    launches += 1
+    return out

@@ -1,0 +1,6 @@
+"""Model zoo of the port: the dense family so far (see ROADMAP.md)."""
+from .transformer import (ServeState, decode_step, init_cache, init_model,
+                          model_forward, prefill)
+
+__all__ = ["ServeState", "decode_step", "init_cache", "init_model",
+           "model_forward", "prefill"]

@@ -1,0 +1,198 @@
+"""Model assembly and serving forwards for the dense family.
+
+Counterpart of ``repro.models.transformer``, dense family only:
+llama-style pre-norm blocks (GQA attention + gated MLP) over a tied or
+untied embedding.  ``repro`` stacks every layer's weights along a leading
+L axis and scans over them; here ``params["blocks"]`` is a list of
+per-layer dicts and a Python loop walks it.  The KV cache stays stacked,
+``{"k", "v"}`` of shape (L, B, S, K, hd), and the serving forwards write
+it in place.  Any other family raises ``NotImplementedError`` naming the
+ROADMAP.md slice that brings it.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.configs.base import ModelConfig
+from . import attention as A
+from . import layers as L
+
+# which ROADMAP.md Queue 1 slice ports each family that is not here yet
+_FAMILY_SLICE = {
+    "ssm": "Queue 1, item 2: ssm serving (mamba2-780m) with kernel K2",
+    "hybrid": "Queue 1, item 4: the remaining serving families",
+    "moe": "Queue 1, item 4: the remaining serving families",
+    "vlm": "Queue 1, item 4: the remaining serving families",
+    "audio": "Queue 1, item 4: the remaining serving families",
+}
+
+
+def check_family(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) is not ported yet; it "
+            f"comes with ROADMAP.md "
+            f"{_FAMILY_SLICE.get(cfg.family, 'Queue 1')}")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _init_norm(cfg: ModelConfig, device):
+    if cfg.norm == "layernorm":
+        return L.init_layernorm(cfg.d_model, L.torch_dtype(cfg), device)
+    return L.init_rmsnorm(cfg.d_model, L.torch_dtype(cfg), device)
+
+
+def init_model(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> dict:
+    """Random weights from a seeded ``torch.Generator`` on ``device``,
+    with ``repro``'s init distribution.  ``device="meta"`` gives the
+    parameter template (shapes and types, no storage)."""
+    check_family(cfg)
+    dev = torch.device(device)
+    if dev.type != "meta":
+        dev = resolve_device(dev)
+    gen = None if dev.type == "meta" else \
+        torch.Generator(device=dev).manual_seed(seed)
+    kw = dict(generator=gen, device=dev)
+    params: dict[str, Any] = {"embed": L.init_embed(cfg, **kw),
+                              "final_norm": _init_norm(cfg, dev)}
+    params["blocks"] = [
+        {"ln1": _init_norm(cfg, dev),
+         "attn": A.init_attention(cfg, **kw),
+         "ln2": _init_norm(cfg, dev),
+         "mlp": L.init_mlp(cfg, **kw)}
+        for _ in range(cfg.num_layers)]
+    return params
+
+
+# ---------------------------------------------------------------------------
+# no-cache forward (the consistency checks' reference for the cached path)
+# ---------------------------------------------------------------------------
+
+def _norm(cfg: ModelConfig, p, x):
+    return L.apply_norm(p, x, cfg.norm_eps)
+
+
+def _ffn(lp, h, cfg: ModelConfig):
+    return h + L.mlp(lp["mlp"], _norm(cfg, lp["ln2"], h), cfg)
+
+
+def model_forward(params, cfg: ModelConfig, tokens):
+    """Full forward to logits.  tokens: (B, T) int.  Returns
+    ``(logits (B, T, V), aux_loss)``; the dense family has no aux loss."""
+    h = L.embed(params["embed"], tokens)
+    Bz, T, _ = h.shape
+    positions = torch.arange(T, device=h.device)[None]
+    for lp in params["blocks"]:
+        hn = _norm(cfg, lp["ln1"], h)
+        q, k, v = A.qkv(lp["attn"], hn, cfg, positions=positions)
+        o = A.attention(q, k, v, causal=True, window=cfg.sliding_window)
+        h = h + o.reshape(Bz, T, -1) @ lp["attn"]["wo"]
+        h = _ffn(lp, h, cfg)
+    h = _norm(cfg, params["final_norm"], h)
+    return L.unembed(params["embed"], h), 0.0
+
+
+# ---------------------------------------------------------------------------
+# serving: caches, prefill, decode
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ServeState:
+    """Serving state.  ``cache``: {"k", "v"} of shape (L, B, S, K, hd),
+    written in place by ``prefill`` and ``decode_step``; ``length``: (B,)
+    int32 count of valid cache positions per row."""
+    cache: dict
+    length: torch.Tensor
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
+               dtype=torch.bfloat16, device="cuda") -> dict:
+    check_family(cfg)
+    dev = resolve_device(device)
+    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.hd())
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def _attn_cached(lp, h, cfg: ModelConfig, kc, vc, length, *,
+                 prefill: bool):
+    """Attention with cache read and write.  h: (B, T, d); kc, vc: this
+    layer's (B, S, K, hd) cache, written in place.
+
+    prefill: writes positions [0, T) and attends within the new block
+             (through K1 on the card).
+    decode:  T == 1; writes row b at position ``length[b]`` in place (a
+             row whose length has reached S is left as it is, as in
+             ``repro``) and attends to ``length + 1`` positions.
+    """
+    Bz, T, _ = h.shape
+    positions = torch.arange(T, device=h.device)[None] if prefill \
+        else length[:, None]
+    hn = _norm(cfg, lp["ln1"], h)
+    q, k, v = A.qkv(lp["attn"], hn, cfg, positions=positions)
+    if prefill:
+        kc[:, :T] = k
+        vc[:, :T] = v
+        o = A.attention(q, k, v, causal=True, window=cfg.sliding_window)
+    else:
+        S = kc.shape[1]
+        rows = torch.arange(Bz, device=h.device)
+        at = length.clamp(max=S - 1).long()
+        inside = (length < S)[:, None, None]
+        kc[rows, at] = torch.where(inside, k[:, 0].to(kc.dtype), kc[rows, at])
+        vc[rows, at] = torch.where(inside, v[:, 0].to(vc.dtype), vc[rows, at])
+        o = A.decode_attention(q, kc, vc, length + 1,
+                               window=cfg.sliding_window)
+    h = h + o.reshape(Bz, T, -1) @ lp["attn"]["wo"]
+    return _ffn(lp, h, cfg)
+
+
+def _select_row(h, pos):
+    """(B, T, d) -> (B, 1, d): row ``pos[b]`` of each batch element."""
+    return h[torch.arange(h.shape[0], device=h.device), pos][:, None]
+
+
+def prefill(params, cfg: ModelConfig, tokens, cache, *, true_len=None):
+    """Run the prompt and fill ``cache`` in place.  Returns
+    ``(logits (B, 1, V), ServeState)``.
+
+    ``true_len`` (int or (B,) ints) marks the valid prompt length when
+    ``tokens`` is right-padded to a bucket: the logits are taken at the
+    last true position and ``state.length`` is ``true_len``, so decode
+    overwrites the pad region and attention never reads past it.
+    """
+    h = L.embed(params["embed"], tokens)
+    Bz, T, _ = h.shape
+    length0 = torch.zeros((Bz,), dtype=torch.int32, device=h.device)
+    for i, lp in enumerate(params["blocks"]):
+        h = _attn_cached(lp, h, cfg, cache["k"][i], cache["v"][i], length0,
+                         prefill=True)
+    if true_len is None:
+        h_last = h[:, -1:]
+        length = torch.full((Bz,), T, dtype=torch.int32, device=h.device)
+    else:
+        length = torch.as_tensor(true_len, dtype=torch.int32,
+                                 device=h.device).expand(Bz).clone()
+        h_last = _select_row(h, length.long() - 1)
+    h_last = _norm(cfg, params["final_norm"], h_last)
+    logits = L.unembed(params["embed"], h_last)
+    return logits, ServeState(cache=cache, length=length)
+
+
+def decode_step(params, cfg: ModelConfig, token, state: ServeState):
+    """One token for every row.  token: (B, 1) int.  Writes the cache in
+    place; the returned state shares it and has ``length + 1``."""
+    h = L.embed(params["embed"], token)
+    for i, lp in enumerate(params["blocks"]):
+        h = _attn_cached(lp, h, cfg, state.cache["k"][i],
+                         state.cache["v"][i], state.length, prefill=False)
+    h = _norm(cfg, params["final_norm"], h)
+    logits = L.unembed(params["embed"], h)
+    return logits, ServeState(cache=state.cache, length=state.length + 1)

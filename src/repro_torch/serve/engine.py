@@ -1,0 +1,242 @@
+"""Continuous-batching serving engine over a serve step.
+
+Counterpart of ``repro.serve.engine``, with the same contracts:
+
+  * batched == sequential: greedy continuous batching is token-identical
+    to decoding each request alone at batch 1 — decode rows are
+    independent and prefill is per-request batch-1.
+  * admission: a prompt longer than its bucket selects a larger bucket
+    (never truncated); a request that cannot fit
+    ``len(prompt) + max_new_tokens`` inside ``max_seq`` raises ValueError
+    at admit.
+  * termination: eos / max_new_tokens / max_seq fire exactly once per
+    request and are recorded in ``finish_reason``.
+
+The engine owns only host-side bookkeeping (slots, admission, sampling,
+termination, latency); the :class:`~repro_torch.serve.steps.ServeStep`
+runs the model on its device.  Each step's logits are reduced to token
+ids on the device, and only the ids come back to the host.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Optional
+
+import numpy as np
+
+from .sampling import SamplerConfig, sample_token
+from .steps import ServeStep, build_serve_step
+
+__all__ = ["Request", "ContinuousBatcher", "termination_reason",
+           "DEFAULT_BUCKETS"]
+
+DEFAULT_BUCKETS = (32, 64, 128, 256, 512)
+
+
+@dataclasses.dataclass
+class Request:
+    """One serving request (mutated in place by the engine)."""
+    rid: Any
+    prompt: Any                       # sequence of int token ids
+    max_new_tokens: int = 32
+    arrival_step: int = 0             # decode step at which it arrives
+    out: list = dataclasses.field(default_factory=list)
+    done: bool = False
+    finish_reason: Optional[str] = None
+    t_arrival: Optional[float] = dataclasses.field(default=None,
+                                                   repr=False)
+    t_first: Optional[float] = dataclasses.field(default=None, repr=False)
+    t_done: Optional[float] = dataclasses.field(default=None, repr=False)
+
+
+def termination_reason(token: int, n_out: int, length: int, *,
+                       eos_id: int, max_new_tokens: int,
+                       max_seq: int) -> Optional[str]:
+    """The single termination decision, applied after appending the
+    ``n_out``-th generated token (``length`` = cache positions consumed
+    so far).  Priority: eos, then the token budget, then cache capacity.
+    Returns None while the request should keep decoding."""
+    if eos_id >= 0 and token == eos_id:
+        return "eos"
+    if n_out >= max_new_tokens:
+        return "length"
+    if length >= max_seq:
+        return "max_seq"
+    return None
+
+
+class ContinuousBatcher:
+    """Slot-based continuous batching over one ServeStep.
+
+    params    weights on ``device`` (``models.init_model`` or
+              ``bridge.params_from_repro``).
+    sampler   None or greedy; ``temperature > 0`` is not ported yet.
+    device    where the model runs; defaults to ``"cuda"`` and raises
+              when there is no GPU.
+    step      inject a prebuilt ServeStep (its device wins).
+    """
+
+    def __init__(self, params, cfg, *, slots: int, max_seq: int,
+                 eos_id: int = -1, sampler: Optional[SamplerConfig] = None,
+                 hosting: str = "replicated",
+                 step: Optional[ServeStep] = None, device="cuda"):
+        self.cfg = cfg
+        self.slots = int(slots)
+        self.max_seq = int(max_seq)
+        self.eos_id = int(eos_id)
+        if sampler is not None and not sampler.greedy:
+            raise NotImplementedError(
+                "temperature > 0 needs the threefry sampler, which is not "
+                "ported yet (ROADMAP.md, Queue 1, item 5)")
+        self.sampler = sampler
+        if step is not None:
+            if (step.ctx.max_seq, step.ctx.slots) != (self.max_seq,
+                                                      self.slots):
+                raise ValueError(
+                    f"injected step was built for max_seq="
+                    f"{step.ctx.max_seq}, slots={step.ctx.slots}; engine "
+                    f"wants max_seq={self.max_seq}, slots={self.slots}")
+            self.step = step
+        else:
+            self.step = build_serve_step(
+                cfg, max_seq=self.max_seq, slots=self.slots,
+                hosting=hosting, device=device)
+        self.hosted = self.step.prepare(params)
+        self.state = self.step.init_state()
+        self._active: dict[int, Request] = {}
+        self._free = list(range(self.slots))
+        self._last_tok = np.zeros((self.slots,), np.int64)
+
+    # -- termination ------------------------------------------------------
+
+    def _finish_if_done(self, req: Request, token: int,
+                        length: int) -> bool:
+        reason = termination_reason(
+            token, len(req.out), length, eos_id=self.eos_id,
+            max_new_tokens=req.max_new_tokens, max_seq=self.max_seq)
+        if reason is None:
+            return False
+        if req.finish_reason is not None:
+            raise RuntimeError(
+                f"request {req.rid} finished twice "
+                f"({req.finish_reason!r} then {reason!r})")
+        req.finish_reason = reason
+        req.done = True
+        req.t_done = time.perf_counter()
+        return True
+
+    # -- admission --------------------------------------------------------
+
+    def _bucket_for(self, L: int) -> int:
+        """Prompt pad width: smallest bucket >= L, else the prompt length
+        itself past the largest bucket, capped at ``max_seq``.  Never
+        below L (admission has proven ``L + max_new_tokens <= max_seq``)."""
+        for b in DEFAULT_BUCKETS:
+            if b >= L:
+                return min(b, self.max_seq)
+        return min(max(L, DEFAULT_BUCKETS[-1]), self.max_seq)
+
+    def admit(self, req: Request, slot: int):
+        """Prefill ``req`` at batch 1 and splice its state into ``slot``.
+        Produces the first generated token (from the last true prompt
+        position).  Raises ValueError when the request cannot fit
+        ``max_seq``."""
+        prompt = np.asarray(req.prompt, np.int64).reshape(-1)
+        L = int(prompt.shape[0])
+        if L == 0:
+            raise ValueError(f"request {req.rid!r}: empty prompt")
+        need = L + int(req.max_new_tokens)
+        if need > self.max_seq:
+            raise ValueError(
+                f"request {req.rid!r}: prompt length {L} + max_new_tokens "
+                f"{req.max_new_tokens} = {need} exceeds max_seq="
+                f"{self.max_seq}; shorten the prompt or lower "
+                f"max_new_tokens")
+        b = self._bucket_for(L)
+        if b < L:
+            raise RuntimeError(
+                f"prefill bucket {b} shorter than prompt length {L}")
+        toks = np.zeros((1, b), np.int64)
+        toks[0, :L] = prompt          # whole prompt, never sliced
+        logits, st1 = self.step.prefill(self.hosted, toks, L)
+        if req.t_arrival is None:
+            req.t_arrival = time.perf_counter()
+        t = int(sample_token(logits[0, -1], self.sampler))
+        req.out.append(t)
+        req.t_first = time.perf_counter()
+        if self._finish_if_done(req, t, L):
+            return
+        self.state = self.step.splice(self.state, st1, slot)
+        self._active[slot] = req
+        self._last_tok[slot] = t
+
+    # -- decode -----------------------------------------------------------
+
+    def step_decode(self) -> int:
+        """One batched decode over every slot (idle slots carry garbage
+        rows; decode rows are independent so they cannot influence the
+        active ones).  Returns the number of tokens appended."""
+        tok = self._last_tok.reshape(self.slots, 1)
+        logits, self.state = self.step.decode(self.hosted, tok, self.state)
+        toks = sample_token(logits[:, -1], self.sampler).cpu().numpy()
+        lengths = self.state.length.cpu().numpy()
+        produced = 0
+        for slot, req in list(self._active.items()):
+            t = int(toks[slot])
+            req.out.append(t)
+            self._last_tok[slot] = t
+            produced += 1
+            if self._finish_if_done(req, t, int(lengths[slot])):
+                del self._active[slot]
+                self._free.append(slot)
+        return produced
+
+    # -- the serving loop -------------------------------------------------
+
+    def run(self, requests, *, max_steps: int = 10_000):
+        """Serve ``requests`` to completion (or ``max_steps`` decode
+        steps).  Admission honours ``arrival_step`` and otherwise follows
+        submission order.  Returns ``(requests, stats)``."""
+        pending = list(requests)
+        t0 = time.perf_counter()
+        steps = 0
+        decode_tokens = 0
+        while (pending or self._active) and steps < max_steps:
+            now = time.perf_counter()
+            for r in pending:
+                if r.arrival_step <= steps and r.t_arrival is None:
+                    r.t_arrival = now
+            while self._free and pending:
+                nxt = next((r for r in pending
+                            if r.arrival_step <= steps), None)
+                if nxt is None:
+                    break
+                pending.remove(nxt)
+                slot = self._free.pop(0)
+                self.admit(nxt, slot)
+                if nxt.done:          # finished on its very first token
+                    self._free.insert(0, slot)
+            if not self._active:
+                steps += 1            # idle tick toward the next arrival
+                continue
+            decode_tokens += self.step_decode()
+            steps += 1
+        wall = time.perf_counter() - t0
+        stats = {
+            "steps": steps,
+            "decode_tokens": decode_tokens,
+            "wall_s": wall,
+            "tok_per_s": decode_tokens / wall if wall > 0 else 0.0,
+            "hosting": self.step.hosting,
+            "requests": [
+                {"rid": r.rid,
+                 "tokens": len(r.out),
+                 "finish_reason": r.finish_reason,
+                 "ttft_ms": None if r.t_first is None or r.t_arrival is None
+                 else (r.t_first - r.t_arrival) * 1e3,
+                 "latency_ms": None if r.t_done is None or r.t_arrival is None
+                 else (r.t_done - r.t_arrival) * 1e3}
+                for r in requests],
+        }
+        return requests, stats
