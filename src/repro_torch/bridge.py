@@ -4,9 +4,12 @@
 stacked along a leading L axis under ``"blocks"``.  ``params_from_repro``
 takes that tree with numpy arrays for leaves (the caller converts; this
 module imports no JAX), unstacks the L axis into the port's list of
-per-layer dicts, keeps every weight's (in, out) layout and casts to the
-port's dtype.  It raises if any ``repro`` leaf is left unconsumed, if any
-port parameter is left unset, or if a shape disagrees.
+per-layer dicts, keeps every weight's (in, out) layout and casts each leaf
+to the dtype of the port's parameter template: the Mamba2 leaves
+``A_log``, ``D`` and ``dt_bias`` stay f32 as in ``repro``.  Subtrees
+outside ``"blocks"`` (the hybrid's one ``shared_attn`` block) are not
+stacked and map leaf to leaf.  It raises if any ``repro`` leaf is left
+unconsumed, if any port parameter is left unset, or if a shape disagrees.
 """
 from __future__ import annotations
 

@@ -20,8 +20,10 @@
 // skip.  Ragged lengths are masked inside the tile, so any Tq and Tk work
 // (the TPU shrinks its blocks to a divisor of T instead).  Q, K, V and P
 // tiles sit in shared memory as f32; 256 threads each own a 4 x 4 block of
-// the score tile and 4 rows x hd/16 columns of the accumulator, and the
-// products are plain FMAs in f32 (exact enough to hold f32 inputs at 2e-5).
+// the score tile and 4 rows x hd/16 columns of the accumulator (hd is one
+// of 32, 64, 112, 128; at 112 the tiles take 103 KB of shared memory), and
+// the products are plain FMAs in f32 (exact enough to hold f32 inputs at
+// 2e-5).
 //
 // Bound on the card (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16 dense).  At the
 // serving path's prefill shape B=1, H=24, K=8, hd=128, T=512, bf16, causal:
@@ -252,6 +254,9 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
     case 64:
       return launch<T, 64>(q, k, v, o, B, H, KH, Tq, Tk, causal, window,
                            scale, stream);
+    case 112:  // zamba2's shared attention block: 3584 / 32 heads
+      return launch<T, 112>(q, k, v, o, B, H, KH, Tq, Tk, causal, window,
+                            scale, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, B, H, KH, Tq, Tk, causal, window,
                             scale, stream);

@@ -3,9 +3,8 @@
 Counterpart of ``repro.kernels.flash_attention`` (``flash_attention_tpu``).
 The kernel is ``csrc/flash_attention.cu``, CUDA C++ for ``sm_90a``; its
 header states what it computes, its bound on the card and its design.
-``nvcc`` builds it at first use into ``build/kernels/`` at the root of the
-checkout, as a shared library with a plain C interface, named by a hash
-of the source so that an edited source is rebuilt.
+``nvcc`` builds it at first use (``kernels._build``) into a shared library
+with a plain C interface.
 
 ``flash_attention_cuda`` takes CUDA tensors only; the plain version is
 ``kernels.ref.attention_ref`` and ``kernels.ops.flash_attention`` chooses
@@ -14,65 +13,26 @@ between them by the tensors' device.  ``launches`` counts the launches.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import pathlib
-import shutil
-import subprocess
 
 import torch
 
-SOURCE = pathlib.Path(__file__).resolve().parents[1] / "csrc" / \
-    "flash_attention.cu"
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-HEAD_DIMS = (32, 64, 128)
+from ._build import Library
+
+LIBRARY = Library("flash_attention")
+HEAD_DIMS = (32, 64, 112, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0          # kernel launches since the caller last set it to 0
-build_log = ""        # nvcc's output (ptxas registers / spills per kernel)
-_lib = None
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = pathlib.Path("/usr/local/cuda/bin/nvcc")
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found on PATH or in /usr/local/cuda/bin; "
-                       "K1 cannot be built")
 
 
 def build() -> ctypes.CDLL:
     """Compile (if this source has not been built yet) and load K1."""
-    global _lib, build_log
-    if _lib is not None:
-        return _lib
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"libflash_attention-{digest}.so"
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {SOURCE.name}:\n"
-                               f"{build_log}")
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
+    lib = LIBRARY.load()
     lib.repro_flash_attention_fwd.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
         + [ctypes.c_float, ctypes.c_void_p])
     lib.repro_flash_attention_fwd.restype = ctypes.c_int
-    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.repro_cuda_error_string.restype = ctypes.c_char_p
-    _lib = lib
     return lib
 
 
@@ -113,7 +73,7 @@ def _check(q, k, v):
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
     """q: (B,H,Tq,hd); k, v: (B,K,Tk,hd), contiguous CUDA tensors of one
-    dtype (float32 or bfloat16), hd in {32, 64, 128}.  Returns like q."""
+    dtype (float32 or bfloat16), hd in ``HEAD_DIMS``.  Returns like q."""
     global launches
     _check(q, k, v)
     if window < 0:
@@ -128,9 +88,6 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, H, K, Tq, Tk, hd, int(causal), int(window),
             _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(hd), stream)
-    if err != 0:
-        msg = lib.repro_cuda_error_string(err).decode()
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err} ({msg})")
+    LIBRARY.check(err, "flash_attention")
     launches += 1
     return out

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from . import ref
 from .flash_attention import flash_attention_cuda
+from .ssd import ssd_cuda
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
@@ -18,3 +19,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     if q.device.type == "cuda":
         return flash_attention_cuda(q, k, v, causal=causal, window=window)
     raise ValueError(f"flash_attention: no kernel for device {q.device}")
+
+
+def ssd(x, dt, A, B, C, *, chunk: int, init_state=None):
+    """x: (b,H,T,P); dt: (b,H,T); A: (H,); B,C: (b,T,S); init_state: None
+    or (b,H,P,S) f32.  Returns ``(y (b,H,T,P), final_state (b,H,P,S))``."""
+    if x.device.type == "cpu":
+        return ref.ssd_chunked_ref(x, dt, A, B, C, chunk=chunk,
+                                   init_state=init_state)
+    if x.device.type == "cuda":
+        return ssd_cuda(x, dt, A, B, C, chunk=chunk, init_state=init_state)
+    raise ValueError(f"ssd: no kernel for device {x.device}")

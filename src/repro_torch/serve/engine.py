@@ -32,6 +32,9 @@ __all__ = ["Request", "ContinuousBatcher", "termination_reason",
            "DEFAULT_BUCKETS"]
 
 DEFAULT_BUCKETS = (32, 64, 128, 256, 512)
+# families whose state folds in every token it is given: their prefill
+# runs at the exact prompt length, since pad tokens would enter the state
+_RECURRENT_FAMILIES = ("ssm", "hybrid")
 
 
 @dataclasses.dataclass
@@ -130,8 +133,11 @@ class ContinuousBatcher:
 
     def _bucket_for(self, L: int) -> int:
         """Prompt pad width: smallest bucket >= L, else the prompt length
-        itself past the largest bucket, capped at ``max_seq``.  Never
-        below L (admission has proven ``L + max_new_tokens <= max_seq``)."""
+        itself past the largest bucket, capped at ``max_seq``; exact L for
+        the recurrent families.  Never below L (admission has proven
+        ``L + max_new_tokens <= max_seq``)."""
+        if self.cfg.family in _RECURRENT_FAMILIES:
+            return L
         for b in DEFAULT_BUCKETS:
             if b >= L:
                 return min(b, self.max_seq)

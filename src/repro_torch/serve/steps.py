@@ -67,13 +67,24 @@ def _init_serve_state(cfg: ModelConfig, batch: int, max_seq: int,
                                          device=device))
 
 
-# every cache leaf (L, B, S, K, hd) keeps the batch at axis 1
+# every stacked cache leaf — kv (L, B, S, K, hd), the stacked Mamba2
+# states (L, B, ...), the hybrid's grouped kv (groups, B, S, K, hd) —
+# keeps the batch at axis 1
 _BATCH_AXIS = 1
 
 
 def _splice_leaf(big, small, slot, axis=_BATCH_AXIS):
     """Write ``small`` (batch 1) into row ``slot`` of ``big``, in place."""
     big.narrow(axis, slot, 1).copy_(small)
+
+
+def _splice_tree(big, small, slot):
+    """``_splice_leaf`` over every leaf of a (nested) cache dict."""
+    for name, leaf in big.items():
+        if isinstance(leaf, dict):
+            _splice_tree(leaf, small[name], slot)
+        else:
+            _splice_leaf(leaf, small[name], slot)
 
 
 def _serve_replicated(ctx: ServeContext) -> ServeStep:
@@ -83,6 +94,7 @@ def _serve_replicated(ctx: ServeContext) -> ServeStep:
         return _init_serve_state(cfg, ctx.slots, ctx.max_seq, dev)
 
     def _prefill(params, toks, true_len):
+        # a batch-1 cache of the family's own structure
         cache1 = init_cache(cfg, 1, ctx.max_seq, dtype=torch_dtype(cfg),
                             device=dev)
         toks = torch.as_tensor(toks, dtype=torch.long, device=dev)
@@ -93,8 +105,7 @@ def _serve_replicated(ctx: ServeContext) -> ServeStep:
         return decode_step(params, cfg, tok, state)
 
     def _splice(state, st1, slot):
-        for name in state.cache:
-            _splice_leaf(state.cache[name], st1.cache[name], int(slot))
+        _splice_tree(state.cache, st1.cache, int(slot))
         _splice_leaf(state.length, st1.length, int(slot), axis=0)
         return state
 

@@ -60,11 +60,14 @@ def test_default_device_is_cuda_and_never_falls_back():
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card; the check is for CPU hosts")
     from repro_torch.configs import resolve
-    from repro_torch.models import init_model
+    from repro_torch.models import init_cache, init_model
     from repro_torch.serve import ContinuousBatcher
-    cfg = resolve("llama3.2-3b", smoke=True)
-    params = init_model(cfg, device="cpu")
-    with pytest.raises(RuntimeError, match="cuda"):
-        ContinuousBatcher(params, cfg, slots=2, max_seq=64)
-    with pytest.raises(RuntimeError, match="cuda"):
-        init_model(cfg)
+    for arch in ("llama3.2-3b", "mamba2-780m"):
+        cfg = resolve(arch, smoke=True)
+        params = init_model(cfg, device="cpu")
+        with pytest.raises(RuntimeError, match="cuda"):
+            ContinuousBatcher(params, cfg, slots=2, max_seq=64)
+        with pytest.raises(RuntimeError, match="cuda"):
+            init_model(cfg)
+        with pytest.raises(RuntimeError, match="cuda"):
+            init_cache(cfg, 1, 64)

@@ -95,3 +95,20 @@ def test_ops_refuses_other_devices():
     q = torch.empty((1, 2, 16, 32), device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         ops.flash_attention(q, q, q)
+
+
+def test_each_kernel_builds_its_own_hashed_library():
+    """K1 and K2 share one nvcc build (``kernels._build``): each source
+    goes to ``build/kernels/lib<name>-<hash of the source>.so``."""
+    import hashlib
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ssd as k2
+    paths = {}
+    for mod, name in ((fa, "flash_attention"), (k2, "ssd")):
+        lib = mod.LIBRARY
+        digest = hashlib.sha256(lib.source.read_bytes()).hexdigest()[:16]
+        assert lib.source == _build.CSRC / f"{name}.cu"
+        assert lib.path() == _build.BUILD_DIR / f"lib{name}-{digest}.so"
+        paths[name] = lib.path()
+    assert paths["flash_attention"] != paths["ssd"]
+    assert 112 in fa.HEAD_DIMS
