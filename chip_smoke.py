@@ -10,14 +10,17 @@ and the script exits non-zero:
 
   1. device: require CUDA, print the card's name and power limit;
   2. build K1 (``csrc/flash_attention.cu``) and K2 (``csrc/ssd.cu``) with
-     nvcc, both at once;
+     nvcc, both at once, and print each kernel's registers and spills
+     from ptxas;
   3. hold K1 against its plain PyTorch version on the card (the kernel
      tests' shapes, llama3.2-3b's and zamba2-7b's prefill shapes, a ragged
-     1500-long case) at 2e-5 (f32) / 2e-2 (bf16);
+     1500-long case, Tq != Tk with a window at hd 112) at 2e-5 (f32) /
+     2e-2 (bf16);
   4. hold K2, y and final state, against its plain chunked version on the
      card (the kernel tests' shapes, mamba2-780m's and zamba2-7b's prefill
      shapes at T in {3, 64, 387, 512, 792}, with and without an initial
-     state) at 1e-4 (f32) / 5e-2 (bf16);
+     state, the model's dt/A with an initial state at T=792) at 1e-4
+     (f32) / 5e-2 (bf16);
   5. for each of llama3.2-3b, mamba2-780m and zamba2-7b at full width
      (bf16, random weights from seed 0): serve 8 ``mixed`` requests
      through ``ContinuousBatcher`` (4 slots, max_seq 1024, greedy) with
@@ -34,16 +37,29 @@ and the script exits non-zero:
      ``scaled_dot_product_attention`` (llama3.2-3b's and zamba2-7b's
      shapes); K2 at T=512 beside its bound and its plain version (no
      single PyTorch call computes it; mamba2-780m's and zamba2-7b's
-     shapes, the first in the JSON line).
+     shapes, the first in the JSON line).  Each kernel and SDPA is timed
+     two ways: host+device, 50 back-to-back calls between two CUDA events
+     (the wrapper's host work included; the JSON line's ``ms``), and
+     device time per launch, the sum of the CUDA kernel rows the
+     profiler records for 20 calls (K2's three kernels together).  A
+     profiler session that records no device kernel is run again, twice
+     at most; after that the device time comes from CUDA events around
+     20 calls queued behind a sleep kernel, and the line says so.  That
+     queued time is printed beside the profiler's in every case, as
+     ``queued``.
 
-The line before the last is a JSON object with K1's and K2's numbers; the
-last line is ``{"ok": true, "device": {...}}``.
+Both kernels choose by dtype inside their C entry point: bf16 (the
+serving paths, phases 3-6) runs on the tensor cores, f32 on the CUDA
+cores.  The line before the last is a JSON object with K1's and K2's
+numbers; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import pathlib
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -179,6 +195,77 @@ def cuda_ms(fn, reps=50, warmup=5) -> float:
     return start.elapsed_time(end) / reps
 
 
+def profiled(run, tries=3):
+    """``run`` once under torch.profiler: (its CUDA kernel rows, wall ms).
+    Now and then CUPTI hands the profiler no device record for a session
+    in which kernels did run; such a session is run again, up to ``tries``
+    times in all, and ``[]`` comes back if none recorded a kernel.  The
+    profiler slows the host side, so the wall time is above the untraced
+    one."""
+    for attempt in range(1, tries + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        rows = [r for r in prof.key_averages()
+                if r.device_type == torch.autograd.DeviceType.CUDA
+                and r.self_device_time_total > 0]
+        if rows:
+            return rows, wall
+        log("perf", f"the profiler recorded no device kernel (session "
+            f"{attempt} of {tries})")
+    return [], wall
+
+
+def queued_us(fn, reps=20, cycles=50_000_000, tries=4):
+    """Device time per call of ``fn``, in us, without the profiler: CUDA
+    events around ``reps`` calls that the host queues behind a sleep
+    kernel, so that the card runs them back to back.  The sleep has to
+    outlast the host's queueing; if the first event had already passed
+    when the last call was queued, the sleep is doubled and the timing
+    taken again."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        ahead = not start.query()
+        torch.cuda.synchronize()
+        if ahead:
+            return start.elapsed_time(end) * 1e3 / reps
+        cycles *= 2
+    raise RuntimeError("the host could not queue the calls ahead of the card")
+
+
+def device_us(fn, reps=20, warmup=3):
+    """Device time per call of ``fn``, in us, from the profiler's CUDA
+    kernel rows: (the sum over every kernel the calls launched, "name us"
+    per kernel).  Unlike ``cuda_ms`` it leaves out the host's time between
+    launches.  Where no profiler session recorded a kernel, the time comes
+    from ``queued_us`` and the one row says so."""
+    for _ in range(warmup):
+        fn()
+
+    def run():
+        for _ in range(reps):
+            fn()
+
+    rows, _ = profiled(run)
+    if not rows:
+        us = queued_us(fn, reps)
+        return us, [f"queued behind a sleep, CUDA events {us:.2f}"]
+    total = sum(r.self_device_time_total for r in rows) / reps
+    return total, [f"{r.key[:40]} {r.self_device_time_total / reps:.2f}"
+                   for r in rows]
+
+
 def host_ms(fn, reps=5, warmup=1) -> float:
     for _ in range(warmup):
         fn()
@@ -193,19 +280,12 @@ def host_ms(fn, reps=5, warmup=1) -> float:
 def traced(fn):
     """One call of ``fn`` under torch.profiler: (wall ms, device busy ms,
     device operations launched, the five device kernels that took the
-    most time as "name ms" strings).  The profiler slows the host side, so
-    the wall time here is above the untraced one."""
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    rows = prof.key_averages()
-    busy = sum(r.self_device_time_total for r in rows) / 1e3
-    kernels = [r for r in rows
-               if r.device_type == torch.autograd.DeviceType.CUDA]
+    most time as "name ms" strings), or None where no profiler session
+    recorded a kernel."""
+    kernels, wall = profiled(fn)
+    if not kernels:
+        return None
+    busy = sum(r.self_device_time_total for r in kernels) / 1e3
     ops = sum(r.count for r in kernels)
     top = sorted(kernels, key=lambda r: -r.self_device_time_total)[:5]
     return wall, busy, ops, [
@@ -310,6 +390,28 @@ def phase_device() -> str:
     return name
 
 
+def ptxas_lines(nvcc_log: str) -> list:
+    """'kernel: registers; spills' for each entry function in nvcc's
+    ``-Xptxas -v`` output (names demangled where c++filt is found)."""
+    out, fn, spill = [], None, ""
+    for line in nvcc_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn, spill = m.group(1), ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and fn:
+            used = line.split(":", 1)[1].strip()
+            out.append((fn, f"{used}; {spill}"))
+    if out and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(f for f, _ in out),
+                               capture_output=True, text=True, timeout=60,
+                               check=True).stdout.splitlines()
+        out = [(m.group(1) if (m := re.search(r"(\w+<[^>]*>|\w+)\(", n))
+                else n, s) for n, (_, s) in zip(names, out)]
+    return [f"{n}: {s}" for n, s in out]
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     for mod in (fa, k2):            # one nvcc per source, all at once
@@ -318,9 +420,8 @@ def phase_build() -> None:
         mod.build()
         log("build", f"{label} built and loaded "
             f"{time.perf_counter() - t0:.1f} s after the start")
-        for line in mod.LIBRARY.log.splitlines():
-            if "registers" in line or "spill" in line:
-                log("build", f"{label}: {line.strip()}")
+        for line in ptxas_lines(mod.LIBRARY.log):
+            log("build", f"{label} ptxas: {line}")
 
 
 def phase_kernel() -> float:
@@ -367,6 +468,12 @@ def phase_kernel() -> float:
         q, k, v = qkv_inputs(1, 20, 20, 1500, 1500, 64, dtype, seed)
         case(f"ragged Tq=Tk=1500 hd64 {str(dtype)[6:]} full", q, k, v,
              False, 0)
+    for causal in (True, False):
+        seed += 1
+        q, k, v = qkv_inputs(1, zc.num_heads, zc.num_kv_heads, 387, 792,
+                             zc.hd(), torch.bfloat16, seed)
+        case(f"Tq=387 Tk=792 hd{zc.hd()} bf16 "
+             f"{'causal ' if causal else ''}window 96", q, k, v, causal, 96)
     if bad:
         raise RuntimeError(f"K1 disagrees with its plain version: {bad}")
     return main_err
@@ -413,6 +520,9 @@ def phase_ssd() -> float:
         sh = shape[:2] + (387,) + shape[3:]
         case(f"{arch} prefill T=387 init_state", *sh, torch.bfloat16,
              init=True)
+        sh = shape[:2] + (792,) + shape[3:]
+        case(f"{arch} prefill T=792 init_state model dt/A", *sh,
+             torch.bfloat16, init=True, model_like=True)
     if bad:
         raise RuntimeError(f"K2 disagrees with its plain version: {bad}")
     return main_err
@@ -566,7 +676,12 @@ def phase_perf(cfg, name, batcher, stats):
             (f"prefill T={traced_T}",
              lambda: step.prefill(hosted, toks_traced, traced_T)),
             ("decode step", lambda: step.decode(hosted, tok, batcher.state))):
-        wall, busy, ops, top = traced(fn)
+        got = traced(fn)
+        if got is None:
+            log("perf", f"{name} | {cfg.name} traced {label}: not measured, "
+                "the profiler recorded no device kernel")
+            continue
+        wall, busy, ops, top = got
         log("perf", f"{name} | {cfg.name} traced {label}: wall {wall:.3f} "
             f"ms, device busy {busy:.3f} ms (idle {1 - busy / wall:.1%}), "
             f"{ops} device operations ({ops / cfg.num_layers:.1f} per "
@@ -578,15 +693,25 @@ def time_k1(name, B, H, K, T, hd):
     plain version and scaled_dot_product_attention."""
     q, k, v = qkv_inputs(B, H, K, T, T, hd, torch.bfloat16, 99)
     launches = fa.launches
-    ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True))
+    run = lambda: fa.flash_attention_cuda(q, k, v, causal=True)
+    ms = cuda_ms(run)
+    dev, dev_rows = device_us(run)
+    dev_q = queued_us(run)
     fa.launches = launches
     plain = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True), reps=20)
-    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True))
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+    lib = cuda_ms(sdpa)
+    lib_dev, lib_rows = device_us(sdpa)
+    lib_q = queued_us(sdpa)
     bound, bound_by = k1_bound(q, k, causal=True, window=0)
     log("perf", f"{name} | K1 T={T} (B{B} H{H} K{K} hd{hd} bf16 causal, L2 "
-        f"warm): {ms * 1e3:.2f} us/launch; bound {bound * 1e3:.2f} us "
-        f"({bound_by}); plain {plain * 1e3:.2f} us; sdpa {lib * 1e3:.2f} us")
+        f"warm): device {dev:.2f} us/launch ({'; '.join(dev_rows)}; "
+        f"queued {dev_q:.2f}), host+device {ms * 1e3:.2f} us/call; bound "
+        f"{bound * 1e3:.2f} us ({bound_by}); plain {plain * 1e3:.2f} us; "
+        f"sdpa device {lib_dev:.2f} us ({'; '.join(lib_rows)}; queued "
+        f"{lib_q:.2f}), host+device {lib * 1e3:.2f} us; K1 / sdpa device "
+        f"{dev / lib_dev:.2f}")
     return ms, plain, lib, bound, bound_by
 
 
@@ -597,15 +722,20 @@ def time_k2(name, cfg, T=512):
     x, dt, A, B, C, _ = ssd_inputs(1, H, T, P, S, torch.bfloat16, 98,
                                    model_like=True)
     launches = k2.launches
-    ms = cuda_ms(lambda: k2.ssd_cuda(x, dt, A, B, C, chunk=cfg.ssm_chunk))
+    run = lambda: k2.ssd_cuda(x, dt, A, B, C, chunk=cfg.ssm_chunk)
+    ms = cuda_ms(run)
+    dev, dev_rows = device_us(run)
+    dev_q = queued_us(run)
     k2.launches = launches
     plain = cuda_ms(lambda: ref.ssd_chunked_ref(x, dt, A, B, C,
                                                 chunk=cfg.ssm_chunk), reps=20)
     bound, bound_by = k2_bound(x, B, None, cfg.ssm_chunk)
     log("perf", f"{name} | K2 {cfg.name} T={T} (b1 H{H} P{P} S{S} chunk "
-        f"{cfg.ssm_chunk} bf16, L2 warm): {ms * 1e3:.2f} us/launch; bound "
-        f"{bound * 1e3:.2f} us ({bound_by}); plain {plain * 1e3:.2f} us; "
-        f"library: no single PyTorch call")
+        f"{cfg.ssm_chunk} bf16, L2 warm): device {dev:.2f} us/launch "
+        f"({'; '.join(dev_rows)}; queued {dev_q:.2f}), host+device "
+        f"{ms * 1e3:.2f} us/call; "
+        f"bound {bound * 1e3:.2f} us ({bound_by}); plain "
+        f"{plain * 1e3:.2f} us; library: no single PyTorch call")
     return ms, plain, bound, bound_by
 
 

@@ -1,11 +1,13 @@
 """nvcc build of the port's CUDA sources, shared by every kernel.
 
-Each kernel is one CUDA C++ file under ``csrc/`` with a plain C interface.
-``nvcc`` compiles it at first use for ``sm_90a`` into a shared library in
+Each kernel is one CUDA C++ file under ``csrc/`` with a plain C interface
+(plus the headers ``csrc/*.cuh`` that the sources share).  ``nvcc``
+compiles it at first use for ``sm_90a`` into a shared library in
 ``build/kernels/`` at the root of the checkout (ignored by git), named by
-a hash of the source so that an edited source is rebuilt; ``ctypes``
-loads it.  ``Library.start`` runs ``nvcc`` in the background, so that a
-caller can build several kernels at once and then ``load`` each.
+a hash of the source and the headers so that an edit is rebuilt;
+``ctypes`` loads it and sets the C functions' signatures once.
+``Library.start`` runs ``nvcc`` in the background, so that a caller can
+build several kernels at once and then ``load`` each.
 """
 from __future__ import annotations
 
@@ -34,18 +36,26 @@ def _nvcc() -> str:
 
 
 class Library:
-    """``csrc/<name>.cu`` built into ``build/kernels/lib<name>-<hash>.so``."""
+    """``csrc/<name>.cu`` built into ``build/kernels/lib<name>-<hash>.so``.
 
-    def __init__(self, name: str):
+    ``signatures`` maps each C function the wrapper calls to its
+    ``(argtypes, restype)``; they are set once, when the library loads
+    (ctypes otherwise passes a pointer as a 32-bit int)."""
+
+    def __init__(self, name: str, signatures: dict):
         self.name = name
         self.source = CSRC / f"{name}.cu"
+        self.signatures = signatures
         self.log = ""          # nvcc's output (ptxas registers / spills)
         self._proc = None
         self._tmp = None
         self._lib = None
 
     def path(self) -> pathlib.Path:
-        digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:16]
+        h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC.glob("*.cuh")):
+            h.update(header.read_bytes())
+        digest = h.hexdigest()[:16]
         return BUILD_DIR / f"lib{self.name}-{digest}.so"
 
     def start(self) -> None:
@@ -74,10 +84,14 @@ class Library:
                 raise RuntimeError(f"nvcc failed to build "
                                    f"{self.source.name}:\n{self.log}")
             os.replace(self._tmp, self.path())
-        self._lib = ctypes.CDLL(str(self.path()))
-        self._lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
-        self._lib.repro_cuda_error_string.restype = ctypes.c_char_p
-        return self._lib
+        lib = ctypes.CDLL(str(self.path()))
+        sigs = {"repro_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
+                **self.signatures}
+        for fn, (argtypes, restype) in sigs.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        self._lib = lib
+        return lib
 
     def check(self, err: int, what: str) -> None:
         """Raise if a launch returned a CUDA error."""

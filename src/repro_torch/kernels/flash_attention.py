@@ -1,10 +1,12 @@
 """K1 on Hopper: the CUDA flash-attention forward and its ctypes wrapper.
 
 Counterpart of ``repro.kernels.flash_attention`` (``flash_attention_tpu``).
-The kernel is ``csrc/flash_attention.cu``, CUDA C++ for ``sm_90a``; its
-header states what it computes, its bound on the card and its design.
-``nvcc`` builds it at first use (``kernels._build``) into a shared library
-with a plain C interface.
+The kernels are ``csrc/flash_attention.cu``, CUDA C++ for ``sm_90a``; its
+header states what they compute, their bound on the card, their design
+and where they round.  ``nvcc`` builds it at first use (``kernels._build``)
+into a shared library with a plain C interface, whose one entry point
+chooses the kernel by dtype: bfloat16 (every serving path) runs on the
+tensor cores, float32 on the CUDA cores.  One call is one launch.
 
 ``flash_attention_cuda`` takes CUDA tensors only; the plain version is
 ``kernels.ref.attention_ref`` and ``kernels.ops.flash_attention`` chooses
@@ -19,21 +21,19 @@ import torch
 
 from ._build import Library
 
-LIBRARY = Library("flash_attention")
+LIBRARY = Library("flash_attention", {"repro_flash_attention_fwd": (
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+    + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int)})
 HEAD_DIMS = (32, 64, 112, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+ALIGN = 16            # the bf16 kernel copies 16-byte chunks
 
 launches = 0          # kernel launches since the caller last set it to 0
 
 
 def build() -> ctypes.CDLL:
     """Compile (if this source has not been built yet) and load K1."""
-    lib = LIBRARY.load()
-    lib.repro_flash_attention_fwd.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-        + [ctypes.c_float, ctypes.c_void_p])
-    lib.repro_flash_attention_fwd.restype = ctypes.c_int
-    return lib
+    return LIBRARY.load()
 
 
 def _check(q, k, v):
@@ -69,11 +69,18 @@ def _check(q, k, v):
     if min(B, H, Tq, Tk) < 1 or B > 65535 or H > 65535:
         raise ValueError(f"flash_attention_cuda: sizes out of range "
                          f"(B={B}, H={H}, Tq={Tq}, Tk={Tk})")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % ALIGN:
+                raise ValueError(f"flash_attention_cuda: bf16 {name} must "
+                                 f"start on a {ALIGN}-byte boundary")
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
     """q: (B,H,Tq,hd); k, v: (B,K,Tk,hd), contiguous CUDA tensors of one
-    dtype (float32 or bfloat16), hd in ``HEAD_DIMS``.  Returns like q."""
+    dtype, hd in ``HEAD_DIMS``.  bfloat16 (16-byte aligned) runs on the
+    tensor-core kernel, float32 on the CUDA-core kernel.  Returns like
+    q."""
     global launches
     _check(q, k, v)
     if window < 0:

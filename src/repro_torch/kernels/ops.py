@@ -3,7 +3,9 @@
 Counterpart of ``repro.kernels.ops``.  There is no switch: a CPU tensor
 goes to the plain PyTorch version (``kernels.ref``), a CUDA tensor goes
 to the hand-written kernel, and the kernel's wrapper raises if it cannot
-run.  Any other device raises.
+run.  Any other device raises.  On the card each kernel's C entry point
+chooses by dtype: bfloat16, the serving paths' dtype, runs on the tensor
+cores, float32 on the CUDA cores; neither falls back on the other.
 """
 from __future__ import annotations
 

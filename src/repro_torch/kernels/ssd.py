@@ -3,9 +3,14 @@
 Counterpart of ``repro.kernels.ssd`` (``ssd_tpu``), extended to what the
 model path computes with it (``ssd_chunked``): an optional initial state,
 any length T (the ragged tail is masked in the kernel) and the final
-state.  The kernel is ``csrc/ssd.cu``, CUDA C++ for ``sm_90a``; its
-header states what it computes, its bound on the card and its design.
-``nvcc`` builds it at first use (``kernels._build``).
+state.  The kernels are ``csrc/ssd.cu``, CUDA C++ for ``sm_90a``; its
+header states what they compute, their bound on the card, their design
+and where they round.  ``nvcc`` builds it at first use
+(``kernels._build``).  Its one C entry point chooses by dtype: bfloat16
+(every serving path) runs three kernels in order on the caller's stream
+(the chunks' own states and the output on the tensor cores, the state
+recurrence between them), float32 the CUDA-core kernel.  One call is one
+launch of K2.
 
 ``ssd_cuda`` takes CUDA tensors only; the plain version is
 ``kernels.ref.ssd_chunked_ref`` and ``kernels.ops.ssd`` chooses between
@@ -19,9 +24,14 @@ import torch
 
 from ._build import Library
 
-LIBRARY = Library("ssd")
-MAX_CHUNK = 64        # the kernel's score tile is at most 64 x 64
-P_TILE = 16           # state rows per thread block; P must divide by it
+LIBRARY = Library("ssd", {"repro_ssd_fwd": (
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    ctypes.c_int)})
+MAX_CHUNK = 64        # the kernels' score tile is at most 64 x 64
+P_TILE = 16           # P and (bf16) S must be multiples of it
+P_MAX_BF16 = 64       # widest P of the bf16 kernels (a warp's columns)
+S_MAX_BF16 = 128      # widest S of the bf16 kernels (state in registers)
+ALIGN = 16            # the bf16 kernels copy 16-byte chunks
 _SMEM_MAX = 232448    # shared memory one block may use on sm_90
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -30,16 +40,24 @@ launches = 0          # kernel launches since the caller last set it to 0
 
 def build() -> ctypes.CDLL:
     """Compile (if this source has not been built yet) and load K2."""
-    lib = LIBRARY.load()
-    lib.repro_ssd_fwd.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-                                  + [ctypes.c_void_p])
-    lib.repro_ssd_fwd.restype = ctypes.c_int
-    return lib
+    return LIBRARY.load()
 
 
-def _smem_bytes(Q: int, S: int) -> int:
-    return 4 * (2 * Q * (S + 1) + P_TILE * (S + 1) + Q * P_TILE
-                + Q * (Q + 1) + 3 * Q)
+def _smem_bytes(dtype, P: int, S: int, Q: int) -> int:
+    """Shared memory of the largest block the dtype's kernels launch."""
+    if dtype == torch.float32:
+        return 4 * (2 * Q * (S + 1) + P_TILE * (S + 1) + Q * P_TILE
+                    + Q * (Q + 1) + 3 * Q)
+    QP = -(-Q // 16) * 16           # the output kernel's tiles, padded
+    return 2 * (2 * QP * (S + 8) + QP * (P + 8) + 2 * QP * (QP + 8)) \
+        + 4 * 2 * MAX_CHUNK
+
+
+def scratch_bytes(b: int, H: int, T: int, P: int, S: int, chunk: int) -> int:
+    """Bytes of the bf16 kernels' f32 scratch: cum (b,H,T) and the chunk
+    states (b, ceil(T/Q), H, P, S), Q = min(chunk, T)."""
+    nc = -(-T // min(chunk, T))
+    return 4 * (b * H * T + b * nc * H * P * S)
 
 
 def _check(x, dt, A, B, C, init_state, chunk):
@@ -86,7 +104,16 @@ def _check(x, dt, A, B, C, init_state, chunk):
                          f"{P_TILE}")
     if not 1 <= chunk <= MAX_CHUNK:
         raise ValueError(f"ssd_cuda: chunk {chunk} not in [1, {MAX_CHUNK}]")
-    if _smem_bytes(min(chunk, T), S) > _SMEM_MAX:
+    if x.dtype == torch.bfloat16:
+        if S % P_TILE or P > P_MAX_BF16 or S > S_MAX_BF16:
+            raise ValueError(f"ssd_cuda: the bf16 kernels take S a multiple "
+                             f"of {P_TILE}, P <= {P_MAX_BF16} and S <= "
+                             f"{S_MAX_BF16}, got P={P}, S={S}")
+        for name, t in named[:1] + named[3:5]:
+            if t.data_ptr() % ALIGN:
+                raise ValueError(f"ssd_cuda: bf16 {name} must start on a "
+                                 f"{ALIGN}-byte boundary")
+    if _smem_bytes(x.dtype, P, S, min(chunk, T)) > _SMEM_MAX:
         raise ValueError(f"ssd_cuda: state width S={S} needs more shared "
                          f"memory than a block has")
 
@@ -95,21 +122,36 @@ def ssd_cuda(x, dt, A, B, C, *, chunk: int = 64, init_state=None):
     """x: (b,H,T,P) f32 or bf16; dt: (b,H,T) f32; A: (H,) f32; B, C:
     (b,T,S) in x's dtype (one group); init_state: None or (b,H,P,S) f32.
     All contiguous CUDA tensors.  Returns ``(y like x, final_state
-    (b,H,P,S) f32)``."""
+    (b,H,P,S) f32)``.
+
+    bfloat16 runs on the tensor-core kernels, which take 16-byte aligned
+    x, B, C, P <= 64 and S <= 128 a multiple of 16, and need f32 scratch
+    that this wrapper allocates: cum (b,H,T) and the chunk states (b, nc,
+    H, P, S), nc = ceil(T / min(chunk, T)) (``scratch_bytes``; at
+    zamba2-7b's prefill shape, H=112, P=S=64, T=792, chunk 64, the chunk
+    states are 13 x 112 x 64 x 64 x 4 B = 23.9 MB).  float32 runs on the
+    CUDA-core kernel, without scratch."""
     global launches
     _check(x, dt, A, B, C, init_state, chunk)
     lib = build()
     b, H, T, P = x.shape
     S = B.shape[2]
+    Q = min(chunk, T)
     y = torch.empty_like(x)
     final = torch.empty((b, H, P, S), dtype=torch.float32, device=x.device)
+    cum = states = None
+    if x.dtype == torch.bfloat16:
+        cum = torch.empty((b, H, T), dtype=torch.float32, device=x.device)
+        states = torch.empty((b, -(-T // Q), H, P, S), dtype=torch.float32,
+                             device=x.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.repro_ssd_fwd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), None if init_state is None else
-            init_state.data_ptr(), y.data_ptr(), final.data_ptr(),
-            b, H, T, P, S, min(chunk, T), _DTYPE_CODE[x.dtype], stream)
+            C.data_ptr(), ptr(init_state), y.data_ptr(), final.data_ptr(),
+            ptr(cum), ptr(states), b, H, T, P, S, Q, _DTYPE_CODE[x.dtype],
+            stream)
     LIBRARY.check(err, "ssd")
     launches += 1
     return y, final

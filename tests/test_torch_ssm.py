@@ -178,6 +178,23 @@ def test_ops_ssd_refuses_other_devices():
         ops.ssd(x, x[..., 0], x[0, :, 0, 0], x[:, 0], x[:, 0], chunk=8)
 
 
+def test_k2_wrapper_scratch_and_signature():
+    """The bf16 kernels' scratch (cum and the chunk states), as the
+    wrapper's docstring states it at zamba2-7b's prefill shape, and the
+    C entry point's ctypes signature, set once when the library loads:
+    ten pointers (the scratch among them), seven ints, the stream."""
+    import ctypes
+    H, T, P, S_ = 112, 792, 64, 64
+    states = 13 * H * P * S_ * 4
+    assert round(states / 1e6, 1) == 23.9
+    assert k2.scratch_bytes(1, H, T, P, S_, 64) == 4 * H * T + states
+    assert k2.scratch_bytes(1, 4, 3, 16, 16, 64) == 4 * (4 * 3 + 4 * 16 * 16)
+    argtypes, restype = k2.LIBRARY.signatures["repro_ssd_fwd"]
+    assert argtypes == [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 \
+        + [ctypes.c_void_p]
+    assert restype is ctypes.c_int
+
+
 # ---------------------------------------------------------------------------
 # decode step, conv, the Mamba2 block
 # ---------------------------------------------------------------------------
@@ -301,3 +318,135 @@ def test_init_mamba2_follows_repro():
     assert torch.equal(got["w_x"], again["w_x"])
     assert not torch.equal(got["w_x"], other["w_x"])
     assert float(got["conv_x_w"].abs().max()) <= 1.0 + 1e-6   # 0.5 x [-2, 2]
+
+
+# ---------------------------------------------------------------------------
+# where K2's bf16 tensor-core kernels round (csrc/ssd.cu)
+# ---------------------------------------------------------------------------
+
+def _bf16(v):
+    return v.to(torch.bfloat16).float()
+
+
+def _split_bf16(v):
+    """The kernels' two-term split of an f32 operand: hi + lo in bf16."""
+    hi = _bf16(v)
+    return hi + _bf16(v - hi)
+
+
+def _k2_bf16_model(x, dt, A, B, C, *, chunk, init_state=None,
+                   operand=_split_bf16, select_mask=True):
+    """K2's bf16 kernels in plain f32 PyTorch, rounding where they round.
+
+    Head-major as K2 takes it.  Chunk by chunk (Q = min(chunk, T), the
+    ragged tail zero-padded): x, B and C enter the products as the bf16
+    they are; the f32-valued operands -- x o w of the chunk state, the
+    scores and the carried state -- go through ``operand`` (the kernels'
+    hi + lo split, or plain bf16 for the negative control); exp(cum_q)
+    multiplies C . state^T after the product; t > q is selected to 0
+    before the exponential (``select_mask``) or, for the negative control,
+    multiplied by a 0/1 mask.  y is rounded once, to x's dtype."""
+    b, H, T, P = x.shape
+    S = B.shape[-1]
+    Q = min(chunk, T)
+    nc = -(-T // Q)
+    pad = nc * Q - T
+    xf = torch.nn.functional.pad(x.float(), (0, 0, 0, pad))
+    dtf = torch.nn.functional.pad(dt.float(), (0, pad))
+    Bf = torch.nn.functional.pad(B.float(), (0, 0, 0, pad))
+    Cf = torch.nn.functional.pad(C.float(), (0, 0, 0, pad))
+    state = torch.zeros(b, H, P, S) if init_state is None \
+        else init_state.float().clone()
+    tri = torch.ones(Q, Q, dtype=torch.bool).tril()
+    ys = []
+    for c in range(nc):
+        sl = slice(c * Q, (c + 1) * Q)
+        xc, dc, Bc, Cc = xf[:, :, sl], dtf[:, :, sl], Bf[:, sl], Cf[:, sl]
+        cum = torch.cumsum(dc * A[None, :, None], -1)            # (b,H,Q)
+        seg = cum[..., -1]
+        w = torch.exp(seg[..., None] - cum) * dc
+        own = torch.einsum("bhtp,bts->bhps", operand(xc * w[..., None]), Bc)
+        cb = torch.einsum("bqs,bts->bqt", Cc, Bc)[:, None]        # exact
+        diff = cum[..., :, None] - cum[..., None, :]
+        decay = torch.where(tri, torch.exp(diff), torch.zeros(())) \
+            if select_mask else torch.exp(diff) * tri.float()
+        scores = cb * decay * dc[..., None, :]
+        y_intra = torch.einsum("bhqt,bhtp->bhqp", operand(scores), xc)
+        y_inter = torch.exp(cum)[..., None] * torch.einsum(
+            "bqs,bhps->bhqp", Cc, operand(state))
+        ys.append(y_intra + y_inter)
+        state = state * torch.exp(seg)[..., None, None] + own
+    return torch.cat(ys, 2)[:, :, :T].to(x.dtype), state
+
+
+def _model_rate_inputs(H, T, P, S_, seed, init):
+    """bf16 x, B, C and the model's own dt/A (dt = softplus of a unit
+    normal, A = -linspace(1, 16, H)), where exp(cum) underflows within a
+    chunk; head-major, one group."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(1, H, T, P))
+    dt = np.log1p(np.exp(rng.normal(size=(1, H, T)))).astype(np.float32)
+    A = -np.linspace(1.0, 16.0, H).astype(np.float32)
+    B = rng.normal(size=(1, T, S_))
+    C = rng.normal(size=(1, T, S_))
+    s0 = rng.normal(size=(1, H, P, S_)).astype(np.float32) if init else None
+    x, B, C = (torch.tensor(a, dtype=torch.float32).to(torch.bfloat16)
+               for a in (x, B, C))
+    return x, torch.tensor(dt), torch.tensor(A), B, C, \
+        None if s0 is None else torch.tensor(s0)
+
+
+def _repro_ssd(x, dt, A, B, C, chunk, s0):
+    """repro's ssd_chunked on the same bf16 inputs, back in K2's layout."""
+    jb = lambda t: jnp.asarray(_np(t), jnp.bfloat16)
+    y, final = jS.ssd_chunked(
+        jb(x.transpose(1, 2)), jnp.asarray(_np(dt).transpose(0, 2, 1)),
+        jnp.asarray(_np(A)), jb(B[:, :, None]), jb(C[:, :, None]),
+        chunk=chunk, init_state=None if s0 is None else jnp.asarray(_np(s0)))
+    return _np(y).transpose(0, 2, 1, 3), _np(final)
+
+
+def _k2_err_over_tol(got, want):
+    """Worst |got - want| / (5e-2 + 5e-2 |want|): chip_smoke's bf16 K2
+    tolerance; above 1 misses it."""
+    got, want = _np(got), np.asarray(want, np.float32)
+    if not np.isfinite(got).all():
+        return float("inf")
+    return float((np.abs(got - want) / (5e-2 + 5e-2 * np.abs(want))).max())
+
+
+@pytest.mark.parametrize("init", [False, True], ids=["zero", "init_state"])
+@pytest.mark.parametrize("T", [3, 387])
+def test_k2_bf16_rounding_design_matches_repro(T, init):
+    """The split-bf16 design, at the model's dt/A, is within K2's bf16
+    tolerance of repro's ssd_chunked, y and final state."""
+    chunk = 64
+    inp = _model_rate_inputs(4, T, 32, 64, seed=T, init=init)
+    y, final = _k2_bf16_model(*inp[:5], chunk=chunk, init_state=inp[5])
+    want_y, want_s = _repro_ssd(*inp[:5], chunk, inp[5])
+    assert y.dtype == torch.bfloat16 and final.dtype == torch.float32
+    assert _k2_err_over_tol(y, want_y) <= 1.0
+    assert _k2_err_over_tol(final, want_s) <= 1.0
+
+
+def test_k2_plain_bf16_operands_miss_the_tolerance():
+    """Negative control: the same design with the f32-valued operands
+    rounded to plain bf16 misses 5e-2 at the model's rates (mamba2-780m's
+    per-head widths, T=387), where the split passes on the same inputs."""
+    inp = _model_rate_inputs(8, 387, 64, 128, seed=0, init=True)
+    want_y, _ = _repro_ssd(*inp[:5], 64, inp[5])
+    split_y, _ = _k2_bf16_model(*inp[:5], chunk=64, init_state=inp[5])
+    plain_y, _ = _k2_bf16_model(*inp[:5], chunk=64, init_state=inp[5],
+                                operand=_bf16)
+    assert _k2_err_over_tol(split_y, want_y) <= 1.0
+    assert _k2_err_over_tol(plain_y, want_y) > 1.0
+
+
+def test_k2_multiply_mask_gives_nan():
+    """Negative control: masking t > q by multiplying gives inf * 0 = NaN
+    at the model's rates; selecting before the exponential does not."""
+    inp = _model_rate_inputs(4, 387, 16, 32, seed=1, init=False)
+    y_sel, s_sel = _k2_bf16_model(*inp[:5], chunk=64)
+    y_mul, _ = _k2_bf16_model(*inp[:5], chunk=64, select_mask=False)
+    assert torch.isfinite(y_sel.float()).all() and torch.isfinite(s_sel).all()
+    assert torch.isnan(y_mul.float()).any()
