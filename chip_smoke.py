@@ -13,29 +13,37 @@ and the script exits non-zero:
      nvcc, both at once, and print each kernel's registers and spills
      from ptxas;
   3. hold K1 against its plain PyTorch version on the card (the kernel
-     tests' shapes, llama3.2-3b's and zamba2-7b's prefill shapes, a ragged
-     1500-long case, Tq != Tk with a window at hd 112) at 2e-5 (f32) /
-     2e-2 (bf16);
+     tests' shapes, the prefill shapes of llama3.2-3b, zamba2-7b,
+     granite-moe-3b-a800m and llava-next-mistral-7b (576 vision tokens
+     plus the prompt), whisper-large-v3's encoder (Tq = Tk = 1500,
+     non-causal) and cross-attention (Tq 32 and 512 against 1500 frames),
+     Tq != Tk with a window at hd 112) at 2e-5 (f32) / 2e-2 (bf16);
   4. hold K2, y and final state, against its plain chunked version on the
      card (the kernel tests' shapes, mamba2-780m's and zamba2-7b's prefill
      shapes at T in {3, 64, 387, 512, 792}, with and without an initial
      state, the model's dt/A with an initial state at T=792) at 1e-4
      (f32) / 5e-2 (bf16);
-  5. for each of llama3.2-3b, mamba2-780m and zamba2-7b at full width
+  5. for each of llama3.2-3b, mamba2-780m, zamba2-7b, granite-moe-3b-
+     a800m, llava-next-mistral-7b and whisper-large-v3 at full width
      (bf16, random weights from seed 0): serve 8 ``mixed`` requests
-     through ``ContinuousBatcher`` (4 slots, max_seq 1024, greedy) with
-     the kernels' launch counts set to 0 just before and read just after,
-     check every request's tokens and that each kernel ran once per layer
-     that uses it and prefill, and check the cached prefill and first
+     through ``ContinuousBatcher`` (4 slots, max_seq 1024; llava 1600, so
+     that 1024 positions follow its 576 vision tokens; whisper 448, its
+     decoder's context; greedy) with the kernels' launch counts set to 0
+     just before and read just after, check every request's tokens and
+     that each kernel ran once per layer that uses it and prefill (K1
+     three times per whisper decoder layer and prefill: encoder, self,
+     cross), print granite-moe's share of dropped (token, expert)
+     assignments per prefill, and check the cached prefill and first
      decode logits against the no-cache forward beside a negative
-     control that must miss the tolerance (llama3.2-3b in bf16; the
-     recurrent models in f32, same seed, their bf16 numbers printed
-     beside the bf16 noise floor: see LOGIT_TOL);
+     control that must miss the tolerance (llama3.2-3b and whisper in
+     bf16; the recurrent models, granite-moe and llava in f32, same seed,
+     their bf16 numbers printed: see LOGIT_TOL);
   6. for each model: time prefill, a decode step at 4 slots, one traced
      prefill and decode step (device busy time, idle share, operations
      launched); K1 at T=512 beside its bound, its plain version and
      ``scaled_dot_product_attention`` (llama3.2-3b's and zamba2-7b's
-     shapes); K2 at T=512 beside its bound and its plain version (no
+     shapes; llava's at T = 576 + 512 and whisper's encoder, T = 1500
+     non-causal, also); K2 at T=512 beside its bound and its plain version (no
      single PyTorch call computes it; mamba2-780m's and zamba2-7b's
      shapes, the first in the JSON line).  Each kernel and SDPA is timed
      two ways: host+device, 50 back-to-back calls between two CUDA events
@@ -77,6 +85,7 @@ from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import ssd as k2  # noqa: E402
 from repro_torch.models import (ServeState, decode_step, init_model,  # noqa: E402
                                 model_forward)
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.transformer import _hybrid_split  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     ContinuousBatcher, build_serve_step, make_scenario)
@@ -98,8 +107,17 @@ K2_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 # whose check is about the state handed from prefill to decode, in f32 at
 # F32_LOGIT_TOL (the same seed's weights unrounded; that forward moves by
 # 7e-6 under the same change of chunk), with their bf16 numbers printed
-# beside that bf16 noise floor.  Each check prints, beside it, a negative
-# control that it must fail.
+# beside that bf16 noise floor.  The vlm family is held in f32 too: at
+# llava's 32 x 4096 behind its 576 vision tokens the bf16 first decode step
+# moved by 3.5e-2 and 4.3e-2 from the no-cache forward (f32: 1.0e-5 and
+# 8.0e-6), on an H100.  The moe family is held in f32 as well: a
+# near-tie among its top-8-of-40 routing flips under a bf16 rounding and
+# moves the logits far, and its capacity (from the bucket at prefill, from
+# the exact length in the no-cache forward) may drop different tokens;
+# its gate therefore also widens the capacity factor to E/K, so that
+# C >= T and nothing can drop (a test-only config; the served run keeps
+# 1.25).  Each check prints, beside it, a negative control that it must
+# fail.
 LOGIT_TOL = 3e-2
 F32_LOGIT_TOL = 1e-4
 # every negative control must miss the tolerance; the recurrent families'
@@ -125,9 +143,17 @@ SSD_SHAPES = [
     (2, 4, 96, 16, 16, 32),
 ]
 SSM_T = (3, 64, 387, 512, 792)      # exact prompt lengths of the ssm paths
-PERF_T_SSM = (64, 512, 792)
-PATHS = ("llama3.2-3b", "mamba2-780m", "zamba2-7b")
-SLOTS, MAX_SEQ, N_REQ = 4, 1024, 8
+PATHS = ("llama3.2-3b", "mamba2-780m", "zamba2-7b", "granite-moe-3b-a800m",
+         "llava-next-mistral-7b", "whisper-large-v3")
+SLOTS, N_REQ = 4, 8
+# max_seq per path: 1024, but llava's 576 vision tokens come first, and
+# whisper-large-v3's decoder has a context of 448 (max_target_positions in
+# its published config)
+MAX_SEQ = {"llava-next-mistral-7b": 1600, "whisper-large-v3": 448}
+# prefill lengths timed in phase 6 (text tokens; vlm adds its prefix),
+# and the one traced, by family; others 64 / 512 / 792 and 512
+PERF_T = {"dense": (*DEFAULT_BUCKETS, 682), "audio": (64, 256, 448)}
+TRACED_T = {"dense": 32, "audio": 448}
 
 
 def log(phase: str, msg: str) -> None:
@@ -354,9 +380,14 @@ def k2_bound(x, B, s0, chunk):
 
 
 def expected_launches(cfg, prefills: int) -> dict:
-    """Each kernel runs once per layer that uses it and prefill."""
-    if cfg.family == "dense":
+    """Each kernel runs once per layer that uses it and prefill; a whisper
+    decoder layer runs K1 twice (self- and cross-attention) and each of
+    its encoder layers once."""
+    if cfg.family in ("dense", "moe", "vlm"):
         return {"flash_attention": cfg.num_layers * prefills, "ssd": 0}
+    if cfg.family == "audio":
+        return {"flash_attention": (cfg.encoder_layers + 2 * cfg.num_layers)
+                * prefills, "ssd": 0}
     groups = _hybrid_split(cfg)[0] if cfg.family == "hybrid" else 0
     return {"flash_attention": groups * prefills,
             "ssd": cfg.num_layers * prefills}
@@ -463,11 +494,32 @@ def phase_kernel() -> float:
                    f"causal", q, k, v, True, 0)
         if dtype == torch.bfloat16:
             main_err = max(main_err, err)
-    for dtype in (torch.float32, torch.bfloat16):
+    gc = resolve("granite-moe-3b-a800m")
+    for T in (512, 792):
         seed += 1
-        q, k, v = qkv_inputs(1, 20, 20, 1500, 1500, 64, dtype, seed)
-        case(f"ragged Tq=Tk=1500 hd64 {str(dtype)[6:]} full", q, k, v,
-             False, 0)
+        q, k, v = qkv_inputs(1, gc.num_heads, gc.num_kv_heads, T, T,
+                             gc.hd(), torch.bfloat16, seed)
+        main_err = max(main_err, case(
+            f"granite-moe prefill T={T} hd{gc.hd()} bf16 causal", q, k, v,
+            True, 0))
+    lc, wc = resolve("llava-next-mistral-7b"), resolve("whisper-large-v3")
+    shapes = [(f"llava prefill T={lc.vision_tokens}+{T}", lc,
+               lc.vision_tokens + T, lc.vision_tokens + T, True)
+              for T in (512, 792)]
+    shapes += [(f"whisper encoder (ragged) Tq=Tk={wc.encoder_seq}", wc,
+                wc.encoder_seq, wc.encoder_seq, False)]
+    shapes += [(f"whisper cross Tq={T} Tk={wc.encoder_seq}", wc, T,
+                wc.encoder_seq, False) for T in (32, 512)]
+    for label, cfg, Tq, Tk, causal in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            seed += 1
+            q, k, v = qkv_inputs(1, cfg.num_heads, cfg.num_kv_heads, Tq, Tk,
+                                 cfg.hd(), dtype, seed)
+            err = case(f"{label} hd{cfg.hd()} {str(dtype)[6:]} "
+                       f"{'causal' if causal else 'full'}", q, k, v, causal,
+                       0)
+            if dtype == torch.bfloat16:
+                main_err = max(main_err, err)
     for causal in (True, False):
         seed += 1
         q, k, v = qkv_inputs(1, zc.num_heads, zc.num_kv_heads, 387, 792,
@@ -504,8 +556,10 @@ def phase_ssd() -> float:
                      f"{' init_state' if init else ''}", b, H, T, P, S,
                      chunk, dtype, init=init)
     main_err = 0.0
-    for arch in PATHS[1:]:
-        cfg = resolve(arch)
+    for cfg in [resolve(a) for a in PATHS]:
+        if cfg.family not in ("ssm", "hybrid"):
+            continue
+        arch = cfg.name
         shape = (1, cfg.ssm_heads(), None, cfg.ssm_head_dim, cfg.ssm_state,
                  cfg.ssm_chunk)
         for T in SSM_T:
@@ -528,41 +582,57 @@ def phase_ssd() -> float:
     return main_err
 
 
+def negative_control(cfg, st1):
+    """(label, state): a state the first decode step must not be right
+    from, a fault of the hand-off from prefill to decode that each family
+    can make."""
+    if cfg.family in ("ssm", "hybrid"):
+        return "from a zeroed ssm state", ServeState(
+            cache=zero_ssm_state(st1.cache), length=st1.length.clone())
+    if cfg.family == "vlm":
+        # the decode step forgets the vision prefix in the length
+        return "without the vision prefix in its length", ServeState(
+            cache=st1.cache, length=st1.length - cfg.vision_tokens)
+    if cfg.family == "audio":
+        # (one position off moved whisper's logits by only 0.6x LOGIT_TOL
+        # on its 342-token prompt, on an H100; this gave 26x)
+        return "from a zeroed enc_kv", ServeState(
+            cache=st1.cache, length=st1.length.clone(),
+            enc_kv={k: torch.zeros_like(v) for k, v in st1.enc_kv.items()})
+    # the same decode step one cache position early (overwrites the last
+    # prompt token, rotates at L - 1)
+    return "one position off", ServeState(cache=st1.cache,
+                                          length=st1.length - 1)
+
+
 def check_cached(cfg, params, step, bucket_for, reqs, *, tol, gate=True,
                  served=True) -> None:
     """Cached prefill and first decode step against the no-cache forward
     (these launches are apart from the counted run), each beside a
-    negative control that the check must see: for the dense family a
-    decode one cache position early, for the recurrent ones a decode
-    from a zeroed ssm state (a lost prefill-to-decode hand-off), and for
-    those also the noise floor of the no-cache forward itself (the same
-    forward at chunk 32).  With ``gate`` False the numbers are only
-    printed.  ``served``:
-    these are the served weights, so the prefill must also reproduce each
-    request's first token."""
-    recurrent = cfg.family != "dense"
+    negative control that the check must see (``negative_control``), and
+    for the recurrent families also the noise floor of the no-cache
+    forward itself (the same forward at chunk 32).  With ``gate`` False
+    the numbers are only printed.  ``served``: these are the served
+    weights, so the prefill must also reproduce each request's first
+    token."""
+    recurrent = cfg.family in ("ssm", "hybrid")
     for r in (reqs[0], reqs[1]):
         prompt = torch.as_tensor(np.asarray(r.prompt, np.int64),
                                  device="cuda")[None]
+        extra = None if r.extra is None else \
+            torch.as_tensor(r.extra, device="cuda")[None]
         L = prompt.shape[1]
         b = bucket_for(L)
         toks = torch.zeros((1, b), dtype=torch.long, device="cuda")
         toks[0, :L] = prompt[0]
-        logits, st1 = step.prefill(params, toks, L)
-        ref_logits, _ = model_forward(params, cfg, prompt)
+        logits, st1 = step.prefill(params, toks, L, extra)
+        ref_logits, _ = model_forward(params, cfg, prompt,
+                                      extra_embeds=extra)
         e_pre = rel_err(logits[0, -1], ref_logits[0, -1])
         first = torch.tensor([[r.out[0]]], device="cuda")
         full = torch.cat([prompt, first], 1)
-        ref2, _ = model_forward(params, cfg, full)
-        if recurrent:
-            control = "from a zeroed ssm state"
-            lost = ServeState(cache=zero_ssm_state(st1.cache),
-                              length=st1.length.clone())
-        else:
-            # the same decode step one cache position early (overwrites
-            # the last prompt token, rotates at L - 1)
-            control = "one position off"
-            lost = ServeState(cache=st1.cache, length=st1.length - 1)
+        ref2, _ = model_forward(params, cfg, full, extra_embeds=extra)
+        control, lost = negative_control(cfg, st1)
         dec_logits, _ = decode_step(params, cfg, first, st1)
         e_dec = rel_err(dec_logits[0, -1], ref2[0, -1])
         off, _ = decode_step(params, cfg, first, lost)
@@ -596,24 +666,74 @@ def check_cached(cfg, params, step, bucket_for, reqs, *, tol, gate=True,
                                f"is blind")
 
 
-def phase_serve(cfg):
+class DropWatch:
+    """Within ``with``: for each prefill the served run makes, its true
+    length and every layer's ``keep`` mask of the moe dispatch, recorded
+    by wrapping ``batcher.step.prefill`` and ``moe._dispatch_buffer`` (the
+    masks stay on the card until ``shares`` reads them)."""
+
+    def __init__(self, batcher):
+        self.batcher, self.prefills = batcher, []
+
+    def __enter__(self):
+        self.dispatch, self.prefill = (moe_mod._dispatch_buffer,
+                                       self.batcher.step.prefill)
+
+        def dispatch(p, x, cfg):
+            out = self.dispatch(p, x, cfg)
+            if x.shape[1] > 1:                 # a prefill, not a decode step
+                self.prefills[-1][2].append(out[2])
+            return out
+
+        def prefill(params, toks, true_len, extra=None):
+            self.prefills.append((true_len, toks.shape[1], []))
+            return self.prefill(params, toks, true_len, extra)
+
+        moe_mod._dispatch_buffer = dispatch
+        self.batcher.step.prefill = prefill
+        return self
+
+    def __exit__(self, *exc):
+        moe_mod._dispatch_buffer = self.dispatch
+        self.batcher.step.prefill = self.prefill
+
+    def shares(self, K: int) -> list:
+        """(true length, bucket, dropped share of the prompt's (token, k)
+        assignments, the same in the first and in the last layer, dropped
+        share with the pad tokens) per prefill."""
+        out = []
+        for L, T, keeps in self.prefills:
+            drop = torch.stack([~k.reshape(T, K) for k in keeps]).float()
+            real = drop[:, :L].mean(dim=(1, 2))
+            out.append((L, T, float(real.mean()), float(real[0]),
+                        float(real[-1]), float(drop.mean())))
+        return out
+
+
+def phase_serve(cfg, max_seq):
     t0 = time.perf_counter()
     params = init_model(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     log("serve", f"{cfg.name}: {cfg.param_count() / 1e9:.3f} B params, "
-        f"{cfg.dtype}, {cfg.num_layers} layers, d_model {cfg.d_model}, "
-        f"init on the card in {time.perf_counter() - t0:.1f} s")
-    reqs = make_scenario(cfg, kind="mixed", n=N_REQ, seed=0, max_seq=MAX_SEQ)
+        f"{cfg.dtype}, {cfg.num_layers} layers"
+        + (f" + {cfg.encoder_layers} encoder layers over "
+           f"{cfg.encoder_seq} frames" if cfg.family == "audio" else "")
+        + (f", {cfg.vision_tokens} vision tokens" if cfg.family == "vlm"
+           else "")
+        + f", d_model {cfg.d_model}, max_seq {max_seq}, init on the card "
+        f"in {time.perf_counter() - t0:.1f} s")
+    reqs = make_scenario(cfg, kind="mixed", n=N_REQ, seed=0, max_seq=max_seq)
     log("serve", "prompt lengths " + str([len(r.prompt) for r in reqs])
         + ", max_new_tokens " + str([r.max_new_tokens for r in reqs]))
-    batcher = ContinuousBatcher(params, cfg, slots=SLOTS, max_seq=MAX_SEQ,
+    batcher = ContinuousBatcher(params, cfg, slots=SLOTS, max_seq=max_seq,
                                 eos_id=-1, device="cuda")
     torch.cuda.reset_peak_memory_stats()
 
-    fa.launches = k2.launches = 0
-    _, stats = batcher.run(reqs)
-    torch.cuda.synchronize()
-    launches = {"flash_attention": fa.launches, "ssd": k2.launches}
+    with DropWatch(batcher) as drops:
+        fa.launches = k2.launches = 0
+        _, stats = batcher.run(reqs)
+        torch.cuda.synchronize()
+        launches = {"flash_attention": fa.launches, "ssd": k2.launches}
     log("serve", f"{cfg.name}: peak memory allocated during serving "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (weights "
         f"included)")
@@ -632,15 +752,28 @@ def phase_serve(cfg):
     if launches != want:
         raise RuntimeError(f"{cfg.name}: kernel launches {launches}, want "
                            f"{want}")
-    if cfg.family == "dense":
+    if cfg.family == "moe":
+        for L, T, real, first, last, padded in drops.shares(
+                cfg.experts_per_token):
+            log("serve", f"{cfg.name} prefill of prompt {L} (bucket {T}, "
+                f"capacity {moe_mod._capacity(cfg, T)} per expert): dropped "
+                f"{real:.4%} of the prompt's (token, expert) assignments "
+                f"over {cfg.num_layers} layers (first layer {first:.4%}, "
+                f"last {last:.4%}), {padded:.4%} with the pad tokens")
+    if cfg.family in ("dense", "audio"):
         check_cached(cfg, params, batcher.step, batcher._bucket_for, reqs,
                      tol=LOGIT_TOL)
     else:
         check_cached(cfg, params, batcher.step, batcher._bucket_for, reqs,
                      tol=LOGIT_TOL, gate=False)
         cfg32 = dataclasses.replace(cfg, dtype="float32")
+        if cfg.family == "moe":
+            # C >= T: nothing drops, so prefill and no-cache forward agree
+            cfg32 = dataclasses.replace(
+                cfg32, moe_capacity_factor=cfg.num_experts
+                / cfg.experts_per_token)
         params32 = init_model(cfg32, seed=0, device="cuda")
-        step32 = build_serve_step(cfg32, max_seq=MAX_SEQ, slots=1,
+        step32 = build_serve_step(cfg32, max_seq=max_seq, slots=1,
                                   device="cuda")
         check_cached(cfg32, params32, step32, batcher._bucket_for, reqs,
                      tol=F32_LOGIT_TOL, served=False)
@@ -648,20 +781,33 @@ def phase_serve(cfg):
     return batcher, stats, launches
 
 
+def extra_inputs(cfg, g):
+    """Random patches (vlm) or frames (audio) for one request on the card,
+    drawn as the scenarios draw them, or None."""
+    n = {"vlm": cfg.vision_tokens, "audio": cfg.encoder_seq}.get(cfg.family)
+    if n is None:
+        return None
+    return torch.randn((1, n, cfg.d_model), generator=g, device="cuda") * 0.02
+
+
 def phase_perf(cfg, name, batcher, stats):
     step, hosted = batcher.step, batcher.hosted
     g = torch.Generator(device="cuda").manual_seed(1)
-    recurrent = cfg.family != "dense"
-    lengths = PERF_T_SSM if recurrent else (*DEFAULT_BUCKETS, 682)
-    traced_T = 512 if recurrent else 32
+    lengths = PERF_T.get(cfg.family, (64, 512, 792))
+    traced_T = TRACED_T.get(cfg.family, 512)
+    extra = extra_inputs(cfg, g)
+    prefix = cfg.vision_tokens if cfg.family == "vlm" else 0
     toks_traced = None
     for T in lengths:
         toks = torch.randint(1, cfg.vocab_size, (1, T), generator=g,
                              device="cuda")
         toks_traced = toks if T == traced_T else toks_traced
-        ms = host_ms(lambda: step.prefill(hosted, toks, T))
-        log("perf", f"{name} | {cfg.name} prefill T={T}: {ms:.3f} ms "
-            f"({T / ms * 1e3:.0f} prompt tok/s)")
+        ms = host_ms(lambda: step.prefill(hosted, toks, T, extra))
+        log("perf", f"{name} | {cfg.name} prefill T={T}"
+            + (f" (+{prefix} vision tokens)" if prefix else "")
+            + (f" (+ the encoder over {cfg.encoder_seq} frames)"
+               if cfg.family == "audio" else "")
+            + f": {ms:.3f} ms ({T / ms * 1e3:.0f} prompt tok/s)")
     if toks_traced is None:
         toks_traced = torch.randint(1, cfg.vocab_size, (1, traced_T),
                                     generator=g, device="cuda")
@@ -669,13 +815,15 @@ def phase_perf(cfg, name, batcher, stats):
     ms = host_ms(lambda: step.decode(hosted, tok, batcher.state), reps=20,
                  warmup=3)
     log("perf", f"{name} | {cfg.name} decode, {SLOTS} slots, max_seq "
-        f"{MAX_SEQ}: {ms:.3f} ms/step = {SLOTS / ms * 1e3:.1f} tok/s; the "
-        f"batcher run made {stats['tok_per_s']:.1f} decode tok/s "
+        f"{batcher.max_seq}: {ms:.3f} ms/step = {SLOTS / ms * 1e3:.1f} "
+        f"tok/s; the batcher run made {stats['tok_per_s']:.1f} decode tok/s "
         f"wall-clock, prefills included")
-    for label, fn in (
+    for label, fn, layers in (
             (f"prefill T={traced_T}",
-             lambda: step.prefill(hosted, toks_traced, traced_T)),
-            ("decode step", lambda: step.decode(hosted, tok, batcher.state))):
+             lambda: step.prefill(hosted, toks_traced, traced_T, extra),
+             cfg.num_layers + cfg.encoder_layers),
+            ("decode step", lambda: step.decode(hosted, tok, batcher.state),
+             cfg.num_layers)):
         got = traced(fn)
         if got is None:
             log("perf", f"{name} | {cfg.name} traced {label}: not measured, "
@@ -684,33 +832,35 @@ def phase_perf(cfg, name, batcher, stats):
         wall, busy, ops, top = got
         log("perf", f"{name} | {cfg.name} traced {label}: wall {wall:.3f} "
             f"ms, device busy {busy:.3f} ms (idle {1 - busy / wall:.1%}), "
-            f"{ops} device operations ({ops / cfg.num_layers:.1f} per "
+            f"{ops} device operations ({ops / layers:.1f} per "
             f"layer); most device time (ms): {'; '.join(top)}")
 
 
-def time_k1(name, B, H, K, T, hd):
-    """K1 at a prefill shape (bf16 causal, L2 warm) beside its bound, its
-    plain version and scaled_dot_product_attention."""
+def time_k1(name, B, H, K, T, hd, *, causal=True):
+    """K1 at a prefill shape (bf16, L2 warm) beside its bound, its plain
+    version and scaled_dot_product_attention."""
     q, k, v = qkv_inputs(B, H, K, T, T, hd, torch.bfloat16, 99)
     launches = fa.launches
-    run = lambda: fa.flash_attention_cuda(q, k, v, causal=True)
+    run = lambda: fa.flash_attention_cuda(q, k, v, causal=causal)
     ms = cuda_ms(run)
     dev, dev_rows = device_us(run)
     dev_q = queued_us(run)
     fa.launches = launches
-    plain = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True), reps=20)
-    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+    plain = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=causal),
+                    reps=20)
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                                   enable_gqa=True)
     lib = cuda_ms(sdpa)
     lib_dev, lib_rows = device_us(sdpa)
     lib_q = queued_us(sdpa)
-    bound, bound_by = k1_bound(q, k, causal=True, window=0)
-    log("perf", f"{name} | K1 T={T} (B{B} H{H} K{K} hd{hd} bf16 causal, L2 "
-        f"warm): device {dev:.2f} us/launch ({'; '.join(dev_rows)}; "
-        f"queued {dev_q:.2f}), host+device {ms * 1e3:.2f} us/call; bound "
-        f"{bound * 1e3:.2f} us ({bound_by}); plain {plain * 1e3:.2f} us; "
-        f"sdpa device {lib_dev:.2f} us ({'; '.join(lib_rows)}; queued "
-        f"{lib_q:.2f}), host+device {lib * 1e3:.2f} us; K1 / sdpa device "
+    bound, bound_by = k1_bound(q, k, causal=causal, window=0)
+    log("perf", f"{name} | K1 T={T} (B{B} H{H} K{K} hd{hd} bf16 "
+        f"{'causal' if causal else 'non-causal'}, L2 warm): device "
+        f"{dev:.2f} us/launch ({'; '.join(dev_rows)}; queued {dev_q:.2f}), "
+        f"host+device {ms * 1e3:.2f} us/call; bound {bound * 1e3:.2f} us "
+        f"({bound_by}); plain {plain * 1e3:.2f} us; sdpa device "
+        f"{lib_dev:.2f} us ({'; '.join(lib_rows)}; queued {lib_q:.2f}), "
+        f"host+device {lib * 1e3:.2f} us; K1 / sdpa device "
         f"{dev / lib_dev:.2f}")
     return ms, plain, lib, bound, bound_by
 
@@ -739,9 +889,9 @@ def time_k2(name, cfg, T=512):
     return ms, plain, bound, bound_by
 
 
-def timed(label, fn, *args):
+def timed(label, fn, *args, **kw):
     t0 = time.perf_counter()
-    out = fn(*args)
+    out = fn(*args, **kw)
     log("time", f"{label}: {time.perf_counter() - t0:.1f} s")
     return out
 
@@ -755,22 +905,28 @@ def main() -> int:
     launches = {}
     for arch in PATHS:
         cfg = resolve(arch)
-        batcher, stats, launches[arch] = timed(f"serve {arch}", phase_serve,
-                                               cfg)
+        batcher, stats, launches[arch] = timed(
+            f"serve {arch}", phase_serve, cfg, MAX_SEQ.get(arch, 1024))
         timed(f"perf {arch}", phase_perf, cfg, name, batcher, stats)
         if arch == "llama3.2-3b":
             k1 = timed("time K1", time_k1, name, 1, cfg.num_heads,
                        cfg.num_kv_heads, 512, cfg.hd())
         elif arch == "mamba2-780m":
             k2_t = timed("time K2", time_k2, name, cfg)
-        else:
+        elif arch == "zamba2-7b":
             timed("time K1", time_k1, name, 1, cfg.num_heads,
                   cfg.num_kv_heads, 512, cfg.hd())
             timed("time K2", time_k2, name, cfg)
+        elif arch == "llava-next-mistral-7b":
+            timed("time K1", time_k1, name, 1, cfg.num_heads,
+                  cfg.num_kv_heads, cfg.vision_tokens + 512, cfg.hd())
+        elif arch == "whisper-large-v3":
+            timed("time K1", time_k1, name, 1, cfg.num_heads,
+                  cfg.num_kv_heads, cfg.encoder_seq, cfg.hd(), causal=False)
         del batcher
         torch.cuda.empty_cache()
     log("time", f"total: {time.perf_counter() - t_start:.1f} s")
-    by_path = {k: {a: n[k] for a, n in launches.items() if n[k]}
+    by_path = {k: {a: n[k] for a, n in launches.items()}
                for k in ("flash_attention", "ssd")}
     print(name, flush=True)
     print(json.dumps({"kernels": [

@@ -1,13 +1,15 @@
 """``repro`` parameters → the port's parameters.
 
 ``repro.models.init_model`` returns a tree whose per-layer weights are
-stacked along a leading L axis under ``"blocks"``.  ``params_from_repro``
-takes that tree with numpy arrays for leaves (the caller converts; this
-module imports no JAX), unstacks the L axis into the port's list of
-per-layer dicts, keeps every weight's (in, out) layout and casts each leaf
-to the dtype of the port's parameter template: the Mamba2 leaves
-``A_log``, ``D`` and ``dt_bias`` stay f32 as in ``repro``.  Subtrees
-outside ``"blocks"`` (the hybrid's one ``shared_attn`` block) are not
+stacked along a leading L axis under ``"blocks"`` (and, for audio, under
+``"encoder"/"blocks"``, with ``encoder_layers`` entries).
+``params_from_repro`` takes that tree with numpy arrays for leaves (the
+caller converts; this module imports no JAX), unstacks each L axis into
+the port's list of per-layer dicts, keeps every weight's (in, out) layout
+and casts each leaf to the dtype of the port's parameter template: the
+Mamba2 leaves ``A_log``, ``D`` and ``dt_bias`` stay f32 as in ``repro``.
+Leaves outside a ``"blocks"`` stack (the hybrid's one ``shared_attn``
+block, ``vis_proj``, the encoder's ``pos`` and ``final_norm``) are not
 stacked and map leaf to leaf.  It raises if any ``repro`` leaf is left
 unconsumed, if any port parameter is left unset, or if a shape disagrees.
 """
@@ -31,10 +33,12 @@ def _flatten(tree, prefix=()) -> dict:
 
 
 def _repro_path(path: tuple) -> tuple:
-    """Port path → (repro path, layer index or None)."""
-    if path[0] == "blocks":
-        return ("blocks",) + path[2:], path[1]
-    return path, None
+    """Port path → (repro path, the stack's path, layer index), the last
+    two None outside a ``"blocks"`` list."""
+    for i, key in enumerate(path[:-1]):
+        if key == "blocks" and isinstance(path[i + 1], int):
+            return path[:i + 1] + path[i + 2:], path[:i + 1], path[i + 1]
+    return path, None, None
 
 
 def params_from_repro(tree: dict, cfg: ModelConfig, *,
@@ -51,16 +55,17 @@ def params_from_repro(tree: dict, cfg: ModelConfig, *,
             return {k: fill(v, path + (k,)) for k, v in node.items()}
         if isinstance(node, list):
             return [fill(v, path + (i,)) for i, v in enumerate(node)]
-        rpath, layer = _repro_path(path)
+        rpath, stack, layer = _repro_path(path)
         if rpath not in src:
             raise KeyError(f"port parameter {'/'.join(map(str, path))} has "
                            f"no repro leaf {'/'.join(rpath)}")
         arr = np.asarray(src[rpath], np.float32)
-        if layer is not None:
-            if arr.shape[0] != cfg.num_layers:
+        if stack is not None:
+            n = cfg.encoder_layers if stack == ("encoder", "blocks") \
+                else cfg.num_layers
+            if arr.shape[0] != n:
                 raise ValueError(f"repro leaf {'/'.join(rpath)} stacks "
-                                 f"{arr.shape[0]} layers, config has "
-                                 f"{cfg.num_layers}")
+                                 f"{arr.shape[0]} layers, config has {n}")
             arr = arr[layer]
         if tuple(arr.shape) != tuple(node.shape):
             raise ValueError(f"{'/'.join(map(str, path))}: repro shape "

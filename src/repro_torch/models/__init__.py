@@ -1,4 +1,4 @@
-"""Model zoo of the port: dense, ssm and hybrid families (see ROADMAP.md)."""
+"""Model zoo of the port: every family of ``repro`` (see ROADMAP.md)."""
 from .transformer import (ServeState, decode_step, init_cache, init_model,
                           model_forward, prefill)
 

@@ -1,28 +1,38 @@
-"""Model assembly and serving forwards for the dense, ssm and hybrid
-families.
+"""Model assembly and serving forwards for every family of the zoo.
 
-Counterpart of ``repro.models.transformer`` for three families:
+Counterpart of ``repro.models.transformer``:
 
   dense  — llama-style pre-norm blocks (GQA attention + gated MLP)
+  moe    — the same skeleton with the MLP swapped for the capacity MoE
   ssm    — Mamba2 blocks only (attention-free)
   hybrid — a Mamba2 backbone and ONE weight-shared attention block
            applied before every ``hybrid_attn_every`` Mamba2 layers
            (Zamba2), then the tail of Mamba2 layers
+  vlm    — the dense backbone over [projected patch embeds | token embeds]
+  audio  — Whisper: a bidirectional encoder over frame embeddings and a
+           causal decoder with cross-attention in every layer
 
 over a tied or untied embedding.  ``repro`` stacks every layer's weights
-along a leading L axis and scans over them; here ``params["blocks"]`` is
-a list of per-layer dicts and a Python loop walks it.  The caches stay
-stacked, every leaf with its batch on axis 1: dense ``{"k", "v"}`` of
-shape (L, B, S, K, hd); ssm the Mamba2 state ``{"conv_x", "conv_B",
-"conv_C", "ssm"}`` with a leading L; hybrid ``{"mamba": <the ssm cache>,
-"attn": {"k", "v"} with one entry per group}``.  The serving forwards
-write them in place.  Any other family raises ``NotImplementedError``
-naming the ROADMAP.md slice that brings it.
+along a leading L axis and scans over them; here ``params["blocks"]`` (and
+the audio ``params["encoder"]["blocks"]``) is a list of per-layer dicts
+and a Python loop walks it.  The caches stay stacked, every leaf with its
+batch on axis 1: dense, moe, vlm and audio ``{"k", "v"}`` of shape (L, B,
+S, K, hd); ssm the Mamba2 state ``{"conv_x", "conv_B", "conv_C", "ssm"}``
+with a leading L; hybrid ``{"mamba": <the ssm cache>, "attn": {"k", "v"}
+with one entry per group}``.  The serving forwards write them in place.
+Audio serving also carries every decoder layer's cross K/V of the encoder
+output (``ServeState.enc_kv``), computed once at prefill.
+
+One departure in bf16: ``repro`` adds the f32 frame embeddings to its
+encoder's input, so by JAX's type promotion its encoder runs in f32 under
+bf16 weights; here the encoder runs in the model's dtype (the frames plus
+the learned positions are summed in f32, then cast).  In f32 the two are
+the same computation.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -30,23 +40,18 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from . import attention as A
 from . import layers as L
+from . import moe as M
 from . import ssm as S
 
-_FAMILIES = ("dense", "ssm", "hybrid")
-# which ROADMAP.md Queue 1 slice ports each family that is not here yet
-_FAMILY_SLICE = {
-    "moe": "Queue 1, item 4: the remaining serving families (moe)",
-    "vlm": "Queue 1, item 4: the remaining serving families (vlm)",
-    "audio": "Queue 1, item 4: the remaining serving families (audio)",
-}
+_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+# families whose every layer is an attention block (one KV cache per layer)
+_SCANNED_FAMILIES = ("dense", "vlm", "moe", "audio")
 
 
 def check_family(cfg: ModelConfig) -> None:
     if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet; it "
-            f"comes with ROADMAP.md "
-            f"{_FAMILY_SLICE.get(cfg.family, 'Queue 1')}")
+        raise ValueError(f"unknown family {cfg.family!r} ({cfg.name}); "
+                         f"have {_FAMILIES}")
 
 
 # ---------------------------------------------------------------------------
@@ -72,19 +77,42 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> dict:
     kw = dict(generator=gen, device=dev)
     params: dict[str, Any] = {"embed": L.init_embed(cfg, **kw),
                               "final_norm": _init_norm(cfg, dev)}
-    layer = _init_attn_layer if cfg.family == "dense" else _init_mamba_layer
-    params["blocks"] = [layer(cfg, **kw) for _ in range(cfg.num_layers)]
+    if cfg.family in _SCANNED_FAMILIES:
+        cross = cfg.family == "audio"
+        params["blocks"] = [_init_attn_layer(cfg, cross=cross, **kw)
+                            for _ in range(cfg.num_layers)]
+    else:
+        params["blocks"] = [_init_mamba_layer(cfg, **kw)
+                            for _ in range(cfg.num_layers)]
     if cfg.family == "hybrid":
         params["shared_attn"] = _init_attn_layer(cfg, **kw)
+    if cfg.family == "audio":
+        params["encoder"] = {
+            "blocks": [_init_attn_layer(cfg, **kw)
+                       for _ in range(cfg.encoder_layers)],
+            "final_norm": _init_norm(cfg, dev),
+            "pos": L.dense_init((cfg.encoder_seq, cfg.d_model),
+                                L.torch_dtype(cfg), scale=0.01, **kw)}
+    if cfg.family == "vlm":
+        params["vis_proj"] = L.dense_init((cfg.d_model, cfg.d_model),
+                                          L.torch_dtype(cfg), **kw)
     return params
 
 
-def _init_attn_layer(cfg: ModelConfig, *, generator, device) -> dict:
+def _init_attn_layer(cfg: ModelConfig, *, generator, device,
+                     cross: bool = False) -> dict:
     kw = dict(generator=generator, device=device)
-    return {"ln1": _init_norm(cfg, device),
-            "attn": A.init_attention(cfg, **kw),
-            "ln2": _init_norm(cfg, device),
-            "mlp": L.init_mlp(cfg, **kw)}
+    p = {"ln1": _init_norm(cfg, device),
+         "attn": A.init_attention(cfg, **kw),
+         "ln2": _init_norm(cfg, device)}
+    if cfg.family == "moe":
+        p["moe"] = M.init_moe(cfg, **kw)
+    else:
+        p["mlp"] = L.init_mlp(cfg, **kw)
+    if cross:
+        p["lnx"] = _init_norm(cfg, device)
+        p["xattn"] = A.init_attention(cfg, **kw)
+    return p
 
 
 def _init_mamba_layer(cfg: ModelConfig, *, generator, device) -> dict:
@@ -93,25 +121,58 @@ def _init_mamba_layer(cfg: ModelConfig, *, generator, device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# no-cache forward (the consistency checks' reference for the cached path)
+# blocks (shared by the no-cache and cached paths)
 # ---------------------------------------------------------------------------
 
 def _norm(cfg: ModelConfig, p, x):
     return L.apply_norm(p, x, cfg.norm_eps)
 
 
+def _attn_noncache(lp, h, cfg: ModelConfig, *, causal: bool, positions,
+                   window: int, kv=None):
+    """Full-sequence pre-norm attention: self-attention, or with ``kv``
+    given, cross-attention (``xattn``, no rotary) to those keys/values."""
+    hn = _norm(cfg, lp["ln1"] if kv is None else lp["lnx"], h)
+    ap = lp["attn"] if kv is None else lp["xattn"]
+    if kv is None:
+        q, k, v = A.qkv(ap, hn, cfg, positions=positions)
+    else:
+        q, _, _ = A.qkv(ap, hn, cfg, positions=positions, rope=False)
+        k, v = kv
+    o = A.attention(q, k, v, causal=causal, window=window)
+    return h + o.reshape(*o.shape[:2], -1) @ ap["wo"]
+
+
 def _ffn(lp, h, cfg: ModelConfig):
-    return h + L.mlp(lp["mlp"], _norm(cfg, lp["ln2"], h), cfg)
+    """Pre-norm MLP or MoE with its residual: ``(h, aux_loss)``."""
+    hn = _norm(cfg, lp["ln2"], h)
+    if "moe" in lp:
+        out, aux = M.moe_block(lp["moe"], hn, cfg)
+        return h + out, aux
+    return h + L.mlp(lp["mlp"], hn, cfg), 0.0
 
 
-def _attn_block(lp, h, cfg: ModelConfig, positions):
-    """Pre-norm causal attention and MLP over the whole sequence."""
-    Bz, T, _ = h.shape
-    hn = _norm(cfg, lp["ln1"], h)
-    q, k, v = A.qkv(lp["attn"], hn, cfg, positions=positions)
-    o = A.attention(q, k, v, causal=True, window=cfg.sliding_window)
-    h = h + o.reshape(Bz, T, -1) @ lp["attn"]["wo"]
+def _dense_block(lp, h, cfg: ModelConfig, *, positions, enc_out=None):
+    """Causal self-attention, cross-attention to ``enc_out`` where the
+    layer has it, then the MLP or MoE: ``(h, aux_loss)``."""
+    h = _attn_noncache(lp, h, cfg, causal=True, positions=positions,
+                       window=cfg.sliding_window)
+    if enc_out is not None and "xattn" in lp:
+        h = _attn_noncache(lp, h, cfg, causal=False, positions=positions,
+                           window=0, kv=_cross_kv(lp["xattn"], enc_out, cfg))
     return _ffn(lp, h, cfg)
+
+
+def _cross_kv(ap, enc_out, cfg: ModelConfig):
+    """Cross-attention K, V of the encoder output: (B, Te, K, hd) each."""
+    Bz, Te, _ = enc_out.shape
+    K, hd = cfg.num_kv_heads, cfg.hd()
+    k = (enc_out @ ap["wk"]).reshape(Bz, Te, K, hd)
+    v = (enc_out @ ap["wv"]).reshape(Bz, Te, K, hd)
+    if "bk" in ap:
+        k = k + ap["bk"].reshape(K, hd)
+        v = v + ap["bv"].reshape(K, hd)
+    return k, v
 
 
 def _mamba_block(lp, h, cfg: ModelConfig, state=None):
@@ -138,21 +199,68 @@ def _shared_attn_group(cfg: ModelConfig, i: int):
     return i // every if i < groups * every and i % every == 0 else None
 
 
-def model_forward(params, cfg: ModelConfig, tokens):
-    """Full forward to logits.  tokens: (B, T) int.  Returns
-    ``(logits (B, T, V), aux_loss)``; these families have no aux loss."""
+# ---------------------------------------------------------------------------
+# no-cache forward (the consistency checks' reference for the cached path)
+# ---------------------------------------------------------------------------
+
+def _encoder_forward(params, cfg: ModelConfig, frames):
+    """Whisper encoder over frame embeddings (B, Te, d): learned positions
+    and rotary, bidirectional attention (through K1 on the card)."""
+    enc = params["encoder"]
+    Te = frames.shape[1]
+    h = (frames.float() + enc["pos"][:Te].float()).to(enc["pos"].dtype)
+    positions = torch.arange(Te, device=h.device)[None]
+    for lp in enc["blocks"]:
+        h = _attn_noncache(lp, h, cfg, causal=False, positions=positions,
+                           window=0)
+        h, _ = _ffn(lp, h, cfg)
+    return _norm(cfg, enc["final_norm"], h)
+
+
+def _embed_inputs(params, cfg: ModelConfig, tokens, extra_embeds):
+    """Token embeds, with the vlm patch prefix in front.  The projection of
+    the patches runs in f32 and is then cast, as ``repro``'s f32 patches
+    against bf16 weights promote."""
     h = L.embed(params["embed"], tokens)
+    if cfg.family == "vlm":
+        if extra_embeds is None:
+            raise ValueError("vlm needs patch embeddings")
+        vis = extra_embeds.float() @ params["vis_proj"].float()
+        h = torch.cat([vis.to(h.dtype), h], dim=1)
+    return h
+
+
+def _encode(params, cfg: ModelConfig, tokens, extra_embeds):
+    """(decoder input h, encoder output or None) for every family."""
+    if cfg.family != "audio":
+        return _embed_inputs(params, cfg, tokens, extra_embeds), None
+    if extra_embeds is None:
+        raise ValueError("audio needs frame embeddings")
+    return (L.embed(params["embed"], tokens),
+            _encoder_forward(params, cfg, extra_embeds))
+
+
+def model_forward(params, cfg: ModelConfig, tokens, *, extra_embeds=None):
+    """Full forward to logits.  tokens: (B, T) int; ``extra_embeds``: the
+    vlm patches (B, vision_tokens, d) or the audio frames (B, Te, d).
+    Returns ``(logits (B, T_total, V), aux_loss)``: T_total counts the vlm
+    prefix, and the aux loss (moe only, else 0) is summed over layers."""
+    h, enc_out = _encode(params, cfg, tokens, extra_embeds)
     positions = torch.arange(h.shape[1], device=h.device)[None]
-    if cfg.family == "dense":
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
+    if cfg.family in _SCANNED_FAMILIES:
         for lp in params["blocks"]:
-            h = _attn_block(lp, h, cfg, positions)
+            h, aux = _dense_block(lp, h, cfg, positions=positions,
+                                  enc_out=enc_out)
+            aux_total = aux_total + aux
     else:
         for i, lp in enumerate(params["blocks"]):
             if _shared_attn_group(cfg, i) is not None:
-                h = _attn_block(params["shared_attn"], h, cfg, positions)
+                h, _ = _dense_block(params["shared_attn"], h, cfg,
+                                    positions=positions)
             h, _ = _mamba_block(lp, h, cfg)
     h = _norm(cfg, params["final_norm"], h)
-    return L.unembed(params["embed"], h), 0.0
+    return L.unembed(params["embed"], h), aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -163,9 +271,12 @@ def model_forward(params, cfg: ModelConfig, tokens):
 class ServeState:
     """Serving state.  ``cache``: the family's stacked cache (module
     docstring), written in place by ``prefill`` and ``decode_step``;
-    ``length``: (B,) int32 count of positions consumed per row."""
+    ``length``: (B,) int32 count of positions consumed per row (the vlm
+    prefix included); ``enc_kv``: audio only, every decoder layer's cross
+    K/V ``{"k", "v"}`` of shape (L, B, Te, K, hd), else None."""
     cache: dict
     length: torch.Tensor
+    enc_kv: Optional[dict] = None
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
@@ -180,7 +291,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
         return {"k": torch.zeros(shape, dtype=dtype, device=dev),
                 "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
-    if cfg.family == "dense":
+    if cfg.family in _SCANNED_FAMILIES:
         return kv(cfg.num_layers)
     mamba = {name: torch.zeros((cfg.num_layers, *a.shape), dtype=a.dtype,
                                device=dev)
@@ -192,15 +303,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
 
 
 def _attn_cached(lp, h, cfg: ModelConfig, kc, vc, length, *,
-                 prefill: bool):
-    """Attention with cache read and write.  h: (B, T, d); kc, vc: this
-    layer's (B, S, K, hd) cache, written in place.
+                 prefill: bool, enc_kv=None):
+    """Attention with cache read and write, then the layer's
+    cross-attention to ``enc_kv`` (this layer's (k, v), audio) and its
+    MLP or MoE.  h: (B, T, d); kc, vc: this layer's (B, S, K, hd) cache,
+    written in place.
 
     prefill: writes positions [0, T) and attends within the new block
-             (through K1 on the card).
+             (through K1 on the card), and to all of ``enc_kv`` (K1,
+             non-causal).
     decode:  T == 1; writes row b at position ``length[b]`` in place (a
              row whose length has reached S is left as it is, as in
-             ``repro``) and attends to ``length + 1`` positions.
+             ``repro``) and attends to ``length + 1`` positions, and to
+             all of ``enc_kv`` (plain decode attention).
     """
     Bz, T, _ = h.shape
     positions = torch.arange(T, device=h.device)[None] if prefill \
@@ -221,7 +336,16 @@ def _attn_cached(lp, h, cfg: ModelConfig, kc, vc, length, *,
         o = A.decode_attention(q, kc, vc, length + 1,
                                window=cfg.sliding_window)
     h = h + o.reshape(Bz, T, -1) @ lp["attn"]["wo"]
-    return _ffn(lp, h, cfg)
+    if enc_kv is not None:
+        ek, ev = enc_kv
+        hn = _norm(cfg, lp["lnx"], h)
+        qx, _, _ = A.qkv(lp["xattn"], hn, cfg, positions=positions,
+                         rope=False)
+        o = A.attention(qx, ek, ev, causal=False) if prefill else \
+            A.decode_attention(qx, ek, ev, ek.shape[1])
+        h = h + o.reshape(Bz, T, -1) @ lp["xattn"]["wo"]
+    h, _ = _ffn(lp, h, cfg)
+    return h
 
 
 def _mamba_cached(lp, h, cfg: ModelConfig, mcache, i: int):
@@ -235,12 +359,14 @@ def _mamba_cached(lp, h, cfg: ModelConfig, mcache, i: int):
 
 
 def _layers_cached(params, cfg: ModelConfig, h, cache, length, *,
-                   prefill: bool):
+                   prefill: bool, enc_kv=None):
     """Every layer of the family against its cache, in place."""
-    if cfg.family == "dense":
+    if cfg.family in _SCANNED_FAMILIES:
         for i, lp in enumerate(params["blocks"]):
+            ekv = None if enc_kv is None else (enc_kv["k"][i],
+                                               enc_kv["v"][i])
             h = _attn_cached(lp, h, cfg, cache["k"][i], cache["v"][i],
-                             length, prefill=prefill)
+                             length, prefill=prefill, enc_kv=ekv)
         return h
     mcache = cache["mamba"] if cfg.family == "hybrid" else cache
     for i, lp in enumerate(params["blocks"]):
@@ -253,45 +379,63 @@ def _layers_cached(params, cfg: ModelConfig, h, cache, length, *,
     return h
 
 
+def _scan_enc_kv(params, cfg: ModelConfig, enc_out) -> dict:
+    """Every decoder layer's cross K/V of ``enc_out``, stacked: ``{"k",
+    "v"}`` of shape (L, B, Te, K, hd)."""
+    kv = [_cross_kv(lp["xattn"], enc_out, cfg) for lp in params["blocks"]]
+    return {"k": torch.stack([k for k, _ in kv]),
+            "v": torch.stack([v for _, v in kv])}
+
+
 def _select_row(h, pos):
     """(B, T, d) -> (B, 1, d): row ``pos[b]`` of each batch element."""
     return h[torch.arange(h.shape[0], device=h.device), pos][:, None]
 
 
-def prefill(params, cfg: ModelConfig, tokens, cache, *, true_len=None):
+def prefill(params, cfg: ModelConfig, tokens, cache, *, extra_embeds=None,
+            true_len=None):
     """Run the prompt and fill ``cache`` in place.  Returns
     ``(logits (B, 1, V), ServeState)``.
 
+    ``extra_embeds``: the vlm patches, which go in front of the tokens as
+    a prefix of ``vision_tokens`` positions, or the audio frames, whose
+    encoder output gives the state's ``enc_kv``.
+
     ``true_len`` (int or (B,) ints) marks the valid prompt length when
     ``tokens`` is right-padded to a bucket: the logits are taken at the
-    last true position and ``state.length`` is ``true_len``, so decode
-    overwrites the pad region and attention never reads past it.  The
-    recurrent families (ssm, hybrid) fold every token they are given into
-    their state, so their callers prefill at the exact prompt length (the
-    engine does).
+    last true position (``prefix + true_len - 1``) and ``state.length`` is
+    ``prefix + true_len``, so decode overwrites the pad region and
+    attention never reads past it.  The recurrent families (ssm, hybrid)
+    fold every token they are given into their state, so their callers
+    prefill at the exact prompt length (the engine does).
     """
-    h = L.embed(params["embed"], tokens)
+    h, enc_out = _encode(params, cfg, tokens, extra_embeds)
+    enc_kv = None if enc_out is None else _scan_enc_kv(params, cfg, enc_out)
     Bz, T, _ = h.shape
     length0 = torch.zeros((Bz,), dtype=torch.int32, device=h.device)
-    h = _layers_cached(params, cfg, h, cache, length0, prefill=True)
+    h = _layers_cached(params, cfg, h, cache, length0, prefill=True,
+                       enc_kv=enc_kv)
+    prefix = T - tokens.shape[1]            # vlm vision tokens, else 0
     if true_len is None:
         h_last = h[:, -1:]
         length = torch.full((Bz,), T, dtype=torch.int32, device=h.device)
     else:
-        length = torch.as_tensor(true_len, dtype=torch.int32,
-                                 device=h.device).expand(Bz).clone()
+        length = prefix + torch.as_tensor(
+            true_len, dtype=torch.int32, device=h.device).expand(Bz).clone()
         h_last = _select_row(h, length.long() - 1)
     h_last = _norm(cfg, params["final_norm"], h_last)
     logits = L.unembed(params["embed"], h_last)
-    return logits, ServeState(cache=cache, length=length)
+    return logits, ServeState(cache=cache, length=length, enc_kv=enc_kv)
 
 
 def decode_step(params, cfg: ModelConfig, token, state: ServeState):
     """One token for every row.  token: (B, 1) int.  Writes the cache in
-    place; the returned state shares it and has ``length + 1``."""
+    place; the returned state shares it (and ``enc_kv``) and has
+    ``length + 1``."""
     h = L.embed(params["embed"], token)
     h = _layers_cached(params, cfg, h, state.cache, state.length,
-                       prefill=False)
+                       prefill=False, enc_kv=state.enc_kv)
     h = _norm(cfg, params["final_norm"], h)
     logits = L.unembed(params["embed"], h)
-    return logits, ServeState(cache=state.cache, length=state.length + 1)
+    return logits, ServeState(cache=state.cache, length=state.length + 1,
+                              enc_kv=state.enc_kv)

@@ -7,8 +7,8 @@ Counterpart of ``repro.serve.engine``, with the same contracts:
     independent and prefill is per-request batch-1.
   * admission: a prompt longer than its bucket selects a larger bucket
     (never truncated); a request that cannot fit
-    ``len(prompt) + max_new_tokens`` inside ``max_seq`` raises ValueError
-    at admit.
+    ``prefix + len(prompt) + max_new_tokens`` inside ``max_seq`` raises
+    ValueError at admit (prefix: the vlm's vision tokens, else 0).
   * termination: eos / max_new_tokens / max_seq fire exactly once per
     request and are recorded in ``finish_reason``.
 
@@ -44,6 +44,7 @@ class Request:
     prompt: Any                       # sequence of int token ids
     max_new_tokens: int = 32
     arrival_step: int = 0             # decode step at which it arrives
+    extra: Any = None                 # vlm patches / audio frames
     out: list = dataclasses.field(default_factory=list)
     done: bool = False
     finish_reason: Optional[str] = None
@@ -110,6 +111,7 @@ class ContinuousBatcher:
         self._active: dict[int, Request] = {}
         self._free = list(range(self.slots))
         self._last_tok = np.zeros((self.slots,), np.int64)
+        self._prefix = cfg.vision_tokens if cfg.family == "vlm" else 0
 
     # -- termination ------------------------------------------------------
 
@@ -133,15 +135,29 @@ class ContinuousBatcher:
 
     def _bucket_for(self, L: int) -> int:
         """Prompt pad width: smallest bucket >= L, else the prompt length
-        itself past the largest bucket, capped at ``max_seq``; exact L for
-        the recurrent families.  Never below L (admission has proven
-        ``L + max_new_tokens <= max_seq``)."""
+        itself past the largest bucket, capped at ``max_seq - prefix``;
+        exact L for the recurrent families.  Never below L (admission has
+        proven ``prefix + L + max_new_tokens <= max_seq``)."""
         if self.cfg.family in _RECURRENT_FAMILIES:
             return L
+        cap = self.max_seq - self._prefix
         for b in DEFAULT_BUCKETS:
             if b >= L:
-                return min(b, self.max_seq)
-        return min(max(L, DEFAULT_BUCKETS[-1]), self.max_seq)
+                return min(b, cap)
+        return min(max(L, DEFAULT_BUCKETS[-1]), cap)
+
+    def _extra_embeds(self, req: Request):
+        """The request's patches (vlm) or frames (audio) as (1, n, d) f32,
+        or None for the other families."""
+        if self.cfg.family not in ("vlm", "audio"):
+            return None
+        kind = "patch" if self.cfg.family == "vlm" else "frame"
+        if req.extra is None:
+            raise ValueError(
+                f"request {req.rid!r}: family {self.cfg.family!r} needs "
+                f"{kind} embeddings in Request.extra")
+        x = np.asarray(req.extra, np.float32)
+        return x[None] if x.ndim == 2 else x
 
     def admit(self, req: Request, slot: int):
         """Prefill ``req`` at batch 1 and splice its state into ``slot``.
@@ -152,26 +168,29 @@ class ContinuousBatcher:
         L = int(prompt.shape[0])
         if L == 0:
             raise ValueError(f"request {req.rid!r}: empty prompt")
-        need = L + int(req.max_new_tokens)
+        need = self._prefix + L + int(req.max_new_tokens)
         if need > self.max_seq:
             raise ValueError(
-                f"request {req.rid!r}: prompt length {L} + max_new_tokens "
-                f"{req.max_new_tokens} = {need} exceeds max_seq="
-                f"{self.max_seq}; shorten the prompt or lower "
-                f"max_new_tokens")
+                f"request {req.rid!r}: prompt length {L}"
+                + (f" + {self._prefix} vision tokens"
+                   if self._prefix else "")
+                + f" + max_new_tokens {req.max_new_tokens} = {need} "
+                f"exceeds max_seq={self.max_seq}; shorten the prompt or "
+                f"lower max_new_tokens")
         b = self._bucket_for(L)
         if b < L:
             raise RuntimeError(
                 f"prefill bucket {b} shorter than prompt length {L}")
         toks = np.zeros((1, b), np.int64)
         toks[0, :L] = prompt          # whole prompt, never sliced
-        logits, st1 = self.step.prefill(self.hosted, toks, L)
+        logits, st1 = self.step.prefill(self.hosted, toks, L,
+                                        self._extra_embeds(req))
         if req.t_arrival is None:
             req.t_arrival = time.perf_counter()
         t = int(sample_token(logits[0, -1], self.sampler))
         req.out.append(t)
         req.t_first = time.perf_counter()
-        if self._finish_if_done(req, t, L):
+        if self._finish_if_done(req, t, self._prefix + L):
             return
         self.state = self.step.splice(self.state, st1, slot)
         self._active[slot] = req

@@ -1,10 +1,11 @@
-"""Serving scenario generator for the plain families.
+"""Serving scenario generator for every family.
 
 Counterpart of ``repro.serve.scenarios``: the same numpy request mixes,
-drawn from the same seed sequence, so both packages serve byte-identical
-requests.  ``repro`` keys its generators on a registry of families; here
-a tuple names the plain families (vlm and audio, whose requests carry
-synthesized extras, come with their serving slice).
+drawn from the same seed sequence in the same order, so both packages
+serve byte-identical requests, extras included.  ``repro`` keys its
+generators on a registry of families; here one generator serves every
+family, and adds the synthesized extras of the vlm (patches) and audio
+(frames) requests.
 
 Kinds (``SCENARIO_KINDS``):
 
@@ -62,11 +63,17 @@ def _lengths(kind: str, budget: int, n: int,
     return rows
 
 
+def _budget(cfg: ModelConfig, max_seq: int) -> int:
+    """Positions available to prompt + output (vlm pays its prefix)."""
+    prefix = cfg.vision_tokens if cfg.family == "vlm" else 0
+    return max_seq - prefix
+
+
 def _requests(cfg: ModelConfig, *, kind: str, n: int, seed: int,
-              max_seq: int) -> list:
+              max_seq: int, extra_fn=None) -> list:
     rng = np.random.default_rng(
         np.random.SeedSequence([seed, zlib.crc32(kind.encode())]))
-    budget = max_seq
+    budget = _budget(cfg, max_seq)
     if budget < 8:
         raise ValueError(
             f"max_seq={max_seq} leaves a {budget}-token budget for "
@@ -74,12 +81,25 @@ def _requests(cfg: ModelConfig, *, kind: str, n: int, seed: int,
     reqs = []
     for i, (L, out, arrive) in enumerate(_lengths(kind, budget, n, rng)):
         prompt = rng.integers(1, cfg.vocab_size, size=L).astype(np.int32)
-        reqs.append(Request(rid=i, prompt=prompt, max_new_tokens=out,
-                            arrival_step=arrive))
+        reqs.append(Request(
+            rid=i, prompt=prompt, max_new_tokens=out, arrival_step=arrive,
+            extra=None if extra_fn is None else extra_fn(rng)))
     return reqs
 
 
-_PLAIN_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+# the families with a generator (every family of the zoo)
+_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+
+
+def _extra_fn(cfg: ModelConfig):
+    """The draw of each request's Request.extra: vlm patch embeddings
+    (vision_tokens, d_model), audio frame embeddings (encoder_seq,
+    d_model); None for the families that serve plain prompts."""
+    n = {"vlm": cfg.vision_tokens, "audio": cfg.encoder_seq}.get(cfg.family)
+    if n is None:
+        return None
+    return lambda rng: rng.standard_normal(
+        (n, cfg.d_model)).astype(np.float32) * 0.02
 
 
 def make_scenario(cfg: ModelConfig, *, kind: str, n: int, seed: int,
@@ -89,8 +109,9 @@ def make_scenario(cfg: ModelConfig, *, kind: str, n: int, seed: int,
     if kind not in SCENARIO_KINDS:
         raise ValueError(f"unknown scenario kind {kind!r}; one of "
                          f"{SCENARIO_KINDS}")
-    if cfg.family not in _PLAIN_FAMILIES:
+    if cfg.family not in _FAMILIES:
         raise ValueError(
             f"no serving scenario for family {cfg.family!r}; have "
-            f"{_PLAIN_FAMILIES}")
-    return _requests(cfg, kind=kind, n=n, seed=seed, max_seq=max_seq)
+            f"{_FAMILIES}")
+    return _requests(cfg, kind=kind, n=n, seed=seed, max_seq=max_seq,
+                     extra_fn=_extra_fn(cfg))

@@ -11,8 +11,9 @@ A :class:`ServeStep` is hosting-agnostic to its caller (the engine):
 
   prepare(params) -> hosted          lay the replicated params out
   init_state() -> ServeState         batched (slots) zero state
-  prefill(hosted, toks (1, b), true_len)
-      -> (logits (1, 1, V) at the last true position, batch-1 state)
+  prefill(hosted, toks (1, b), true_len, extra=None)
+      -> (logits (1, 1, V) at the last true position, batch-1 state);
+      ``extra``: the vlm patches or audio frames, (1, n, d) f32
   decode(hosted, tok (slots, 1), state) -> (logits (slots, 1, V), state)
   splice(state, state1, slot) -> state   write the batch-1 state into
       ``slot`` in place
@@ -59,17 +60,25 @@ class ServeStep:
 
 def _init_serve_state(cfg: ModelConfig, batch: int, max_seq: int,
                       device) -> ServeState:
-    """Zero ServeState at the model compute dtype."""
-    cache = init_cache(cfg, batch, max_seq, dtype=torch_dtype(cfg),
-                       device=device)
+    """Zero ServeState at the model compute dtype (audio gets a zero
+    batched ``enc_kv`` that each request's splice fills)."""
+    dt = torch_dtype(cfg)
+    cache = init_cache(cfg, batch, max_seq, dtype=dt, device=device)
+    enc_kv = None
+    if cfg.family == "audio":
+        shape = (cfg.num_layers, batch, cfg.encoder_seq, cfg.num_kv_heads,
+                 cfg.hd())
+        enc_kv = {"k": torch.zeros(shape, dtype=dt, device=device),
+                  "v": torch.zeros(shape, dtype=dt, device=device)}
     return ServeState(cache=cache,
                       length=torch.zeros((batch,), dtype=torch.int32,
-                                         device=device))
+                                         device=device),
+                      enc_kv=enc_kv)
 
 
 # every stacked cache leaf — kv (L, B, S, K, hd), the stacked Mamba2
-# states (L, B, ...), the hybrid's grouped kv (groups, B, S, K, hd) —
-# keeps the batch at axis 1
+# states (L, B, ...), the hybrid's grouped kv (groups, B, S, K, hd), the
+# audio enc_kv (L, B, Te, K, hd) — keeps the batch at axis 1
 _BATCH_AXIS = 1
 
 
@@ -93,12 +102,15 @@ def _serve_replicated(ctx: ServeContext) -> ServeStep:
     def _init():
         return _init_serve_state(cfg, ctx.slots, ctx.max_seq, dev)
 
-    def _prefill(params, toks, true_len):
+    def _prefill(params, toks, true_len, extra=None):
         # a batch-1 cache of the family's own structure
         cache1 = init_cache(cfg, 1, ctx.max_seq, dtype=torch_dtype(cfg),
                             device=dev)
         toks = torch.as_tensor(toks, dtype=torch.long, device=dev)
-        return prefill(params, cfg, toks, cache1, true_len=true_len)
+        if extra is not None:
+            extra = torch.as_tensor(extra, dtype=torch.float32, device=dev)
+        return prefill(params, cfg, toks, cache1, extra_embeds=extra,
+                       true_len=true_len)
 
     def _decode(params, tok, state):
         tok = torch.as_tensor(tok, dtype=torch.long, device=dev)
@@ -106,6 +118,8 @@ def _serve_replicated(ctx: ServeContext) -> ServeStep:
 
     def _splice(state, st1, slot):
         _splice_tree(state.cache, st1.cache, int(slot))
+        if state.enc_kv is not None:
+            _splice_tree(state.enc_kv, st1.enc_kv, int(slot))
         _splice_leaf(state.length, st1.length, int(slot), axis=0)
         return state
 

@@ -62,7 +62,8 @@ def test_default_device_is_cuda_and_never_falls_back():
     from repro_torch.configs import resolve
     from repro_torch.models import init_cache, init_model
     from repro_torch.serve import ContinuousBatcher
-    for arch in ("llama3.2-3b", "mamba2-780m"):
+    for arch in ("llama3.2-3b", "mamba2-780m", "granite-moe-3b-a800m",
+                 "llava-next-mistral-7b", "whisper-large-v3"):
         cfg = resolve(arch, smoke=True)
         params = init_model(cfg, device="cpu")
         with pytest.raises(RuntimeError, match="cuda"):

@@ -225,5 +225,21 @@ def test_init_model_is_seeded_and_follows_repro_distribution():
                                   "whisper-large-v3",
                                   "llava-next-mistral-7b"])
 def test_other_families_name_their_slice(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        init_model(resolve(arch, smoke=True), device="cpu")
+    """The moe, vlm and audio families (ported in their own slice of
+    ROADMAP.md's Queue 1, item 4) build, from a seed, the tree of leaves,
+    shapes and dtypes that the bridge makes of repro's init; an unknown
+    family raises."""
+    jc, tc = jresolve(arch, smoke=True), resolve(arch, smoke=True)
+    tree = jax.tree.map(np.asarray, jinit(jax.random.PRNGKey(0), jc))
+    want = params_from_repro(tree, tc, device="cpu")
+    a, b = (init_model(tc, seed=3, device="cpu") for _ in range(2))
+    flat = lambda t: dict(jax.tree_util.tree_flatten_with_path(
+        t, is_leaf=lambda x: isinstance(x, torch.Tensor))[0])
+    fa, fb, fw = flat(a), flat(b), flat(want)
+    assert set(fa) == set(fw)
+    for path, leaf in fw.items():
+        assert fa[path].shape == leaf.shape and fa[path].dtype == \
+            leaf.dtype, path
+        assert torch.equal(fa[path], fb[path]), path
+    with pytest.raises(ValueError, match="unknown family"):
+        init_model(dataclasses.replace(tc, family="video"), device="cpu")

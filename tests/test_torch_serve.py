@@ -4,6 +4,8 @@ Greedy tokens and finish reasons are held identical: at f32 the two
 packages' logits agree to ~1e-7 relative (tests/test_torch_model.py), far
 below the gap between the two best tokens of these random-weight models.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -79,8 +81,12 @@ def test_scenario_rejects_unknown_kind_and_family(models):
     with pytest.raises(ValueError, match="unknown scenario kind"):
         make_scenario(tc, kind="nope", n=1, seed=0, max_seq=64)
     with pytest.raises(ValueError, match="no serving scenario"):
-        make_scenario(resolve("whisper-large-v3", smoke=True),
+        make_scenario(dataclasses.replace(tc, family="video"),
                       kind="mixed", n=1, seed=0, max_seq=64)
+    # every family of the zoo has a generator; audio requests carry frames
+    audio = make_scenario(resolve("whisper-large-v3", smoke=True),
+                          kind="mixed", n=1, seed=0, max_seq=64)
+    assert audio[0].extra.shape == (16, 64)
 
 
 def test_admission_and_buckets_match_repro(models):
