@@ -17,41 +17,53 @@ and the script exits non-zero:
      granite-moe-3b-a800m and llava-next-mistral-7b (576 vision tokens
      plus the prompt), whisper-large-v3's encoder (Tq = Tk = 1500,
      non-causal) and cross-attention (Tq 32 and 512 against 1500 frames),
-     Tq != Tk with a window at hd 112) at 2e-5 (f32) / 2e-2 (bf16);
+     Tq != Tk with a window at hd 112, granite-34b's G=48 with one K/V
+     head (T = 512, 792) and h2o-danube-3-4b's hd 120 with its window of
+     4096 at T = 512 and at T = 4300, where the window masks keys) at
+     2e-5 (f32) / 2e-2 (bf16);
   4. hold K2, y and final state, against its plain chunked version on the
      card (the kernel tests' shapes, mamba2-780m's and zamba2-7b's prefill
      shapes at T in {3, 64, 387, 512, 792}, with and without an initial
      state, the model's dt/A with an initial state at T=792) at 1e-4
      (f32) / 5e-2 (bf16);
   5. for each of llama3.2-3b, mamba2-780m, zamba2-7b, granite-moe-3b-
-     a800m, llava-next-mistral-7b and whisper-large-v3 at full width
-     (bf16, random weights from seed 0): serve 8 ``mixed`` requests
-     through ``ContinuousBatcher`` (4 slots, max_seq 1024; llava 1600, so
-     that 1024 positions follow its 576 vision tokens; whisper 448, its
-     decoder's context; greedy) with the kernels' launch counts set to 0
-     just before and read just after, check every request's tokens and
-     that each kernel ran once per layer that uses it and prefill (K1
-     three times per whisper decoder layer and prefill: encoder, self,
-     cross), print granite-moe's share of dropped (token, expert)
+     a800m, llava-next-mistral-7b, whisper-large-v3, granite-34b and
+     h2o-danube-3-4b at full width (bf16, random weights from seed 0):
+     serve 8 ``mixed`` requests through ``ContinuousBatcher`` (4 slots,
+     max_seq 1024; llava 1600, so that 1024 positions follow its 576
+     vision tokens; whisper 448, its decoder's context; danube 4352, for
+     a ninth request whose 4300-token prompt prefills past its window of
+     4096; greedy) with the kernels' launch counts set to 0 just before
+     and read just after, check every request's tokens and that each
+     kernel ran once per layer that uses it and prefill (K1 three times
+     per whisper decoder layer and prefill: encoder, self, cross), print
+     the peak memory and granite-moe's share of dropped (token, expert)
      assignments per prefill, and check the cached prefill and first
      decode logits against the no-cache forward beside a negative
      control that must miss the tolerance (llama3.2-3b and whisper in
-     bf16; the recurrent models, granite-moe and llava in f32, same seed,
-     their bf16 numbers printed: see LOGIT_TOL);
+     bf16; the recurrent models, granite-moe, llava and danube in f32,
+     same seed, granite-34b in f32 cut to 4 of its 88 layers, their bf16
+     numbers printed: see LOGIT_TOL).  After llama3.2-3b, serve its
+     requests sampled (seeded, two temperatures), batched at 4 slots and
+     request by request: the tokens must be identical; and check that
+     the sampler's threefry gives the same bits on the card as on the
+     CPU;
   6. for each model: time prefill, a decode step at 4 slots, one traced
      prefill and decode step (device busy time, idle share, operations
      launched); K1 at T=512 beside its bound, its plain version and
      ``scaled_dot_product_attention`` (llama3.2-3b's and zamba2-7b's
-     shapes; llava's at T = 576 + 512 and whisper's encoder, T = 1500
-     non-causal, also); K2 at T=512 beside its bound and its plain version (no
+     shapes; llava's at T = 576 + 512, whisper's encoder, T = 1500
+     non-causal, granite-34b's (G=48) and danube's at T=512 and 4300 with
+     its window also); K2 at T=512 beside its bound and its plain version (no
      single PyTorch call computes it; mamba2-780m's and zamba2-7b's
      shapes, the first in the JSON line).  Each kernel and SDPA is timed
      two ways: host+device, 50 back-to-back calls between two CUDA events
      (the wrapper's host work included; the JSON line's ``ms``), and
      device time per launch, the sum of the CUDA kernel rows the
      profiler records for 20 calls (K2's three kernels together).  A
-     profiler session that records no device kernel is run again, twice
-     at most; after that the device time comes from CUDA events around
+     profiler session that records no device kernel, or a kernel fewer
+     times than the calls launched it, is run again, twice at most;
+     after that the device time comes from CUDA events around
      20 calls queued behind a sleep kernel, and the line says so.  That
      queued time is printed beside the profiler's in every case, as
      ``queued``.
@@ -88,7 +100,10 @@ from repro_torch.models import (ServeState, decode_step, init_model,  # noqa: E4
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.transformer import _hybrid_split  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
-    ContinuousBatcher, build_serve_step, make_scenario)
+    ContinuousBatcher, Request, SamplerConfig, build_serve_step,
+    make_scenario)
+from repro_torch.serve import prng  # noqa: E402
+from repro_torch.serve.sampling import sample_token  # noqa: E402
 from repro_torch.serve.engine import DEFAULT_BUCKETS  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
@@ -144,15 +159,36 @@ SSD_SHAPES = [
 ]
 SSM_T = (3, 64, 387, 512, 792)      # exact prompt lengths of the ssm paths
 PATHS = ("llama3.2-3b", "mamba2-780m", "zamba2-7b", "granite-moe-3b-a800m",
-         "llava-next-mistral-7b", "whisper-large-v3")
+         "llava-next-mistral-7b", "whisper-large-v3", "granite-34b",
+         "h2o-danube-3-4b")
 SLOTS, N_REQ = 4, 8
-# max_seq per path: 1024, but llava's 576 vision tokens come first, and
+# max_seq per path: 1024, but llava's 576 vision tokens come first,
 # whisper-large-v3's decoder has a context of 448 (max_target_positions in
-# its published config)
-MAX_SEQ = {"llava-next-mistral-7b": 1600, "whisper-large-v3": 448}
+# its published config), and h2o-danube-3-4b serves one more request
+# whose prompt is longer than its window of 4096 (LONG_PROMPT)
+MAX_SEQ = {"llava-next-mistral-7b": 1600, "whisper-large-v3": 448,
+           "h2o-danube-3-4b": 4352}
+# the usual 8 requests are drawn for 1024 positions (after llava's
+# prefix; whisper's 448 cap them)
+SCENARIO_POSITIONS = 1024
+# (prompt length, new tokens) of the extra request past the window
+LONG_PROMPT = {"h2o-danube-3-4b": (4300, 10)}
+# the paths whose cached forward is gated in bf16; the others are gated
+# in f32 (the same seed's weights unrounded) with their bf16 numbers
+# printed, granite-34b cut to F32_LAYERS layers at full width (in f32 its
+# 88 layers would take 135 GB)
+BF16_GATED = ("llama3.2-3b", "whisper-large-v3")
+F32_LAYERS = {"granite-34b": 4}
+# the sampled runs of llama3.2-3b: a usual setting (T=0.8, top_p=0.9),
+# and one hot enough that the draw departs from greedy (the random
+# weights' logits are ~50 apart, so at T=0.8 every draw is greedy's)
+SAMPLERS = (SamplerConfig(temperature=0.8, top_p=0.9, seed=1234),
+            SamplerConfig(temperature=64.0, top_p=0.9, seed=1234))
+GUMBEL_ULPS = 4     # card against CPU, in ulps of max(|g|, 1)
 # prefill lengths timed in phase 6 (text tokens; vlm adds its prefix),
 # and the one traced, by family; others 64 / 512 / 792 and 512
-PERF_T = {"dense": (*DEFAULT_BUCKETS, 682), "audio": (64, 256, 448)}
+PERF_T = {"dense": (*DEFAULT_BUCKETS, 682), "audio": (64, 256, 448),
+          "granite-34b": (64, 512, 792), "h2o-danube-3-4b": (64, 512, 4300)}
 TRACED_T = {"dense": 32, "audio": 448}
 
 
@@ -221,13 +257,15 @@ def cuda_ms(fn, reps=50, warmup=5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profiled(run, tries=3):
+def profiled(run, tries=3, reps=None):
     """``run`` once under torch.profiler: (its CUDA kernel rows, wall ms).
     Now and then CUPTI hands the profiler no device record for a session
-    in which kernels did run; such a session is run again, up to ``tries``
-    times in all, and ``[]`` comes back if none recorded a kernel.  The
-    profiler slows the host side, so the wall time is above the untraced
-    one."""
+    in which kernels did run, or only some of the records (a kernel that
+    ``run`` launched ``reps`` times counted fewer times); such a session
+    is run again, up to ``tries`` times in all, and ``[]`` comes back if
+    none recorded every kernel.  Without ``reps`` the launches cannot be
+    counted, and a session with any record is kept.  The profiler slows
+    the host side, so the wall time is above the untraced one."""
     for attempt in range(1, tries + 1):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -239,10 +277,14 @@ def profiled(run, tries=3):
         rows = [r for r in prof.key_averages()
                 if r.device_type == torch.autograd.DeviceType.CUDA
                 and r.self_device_time_total > 0]
-        if rows:
+        short = [f"{r.key[:40]} x{r.count}" for r in rows
+                 if reps and r.count % reps]
+        if rows and not short:
             return rows, wall
-        log("perf", f"the profiler recorded no device kernel (session "
-            f"{attempt} of {tries})")
+        log("perf", f"the profiler recorded "
+            + (f"only some launches of {reps}: {'; '.join(short)}" if rows
+               else "no device kernel")
+            + f" (session {attempt} of {tries})")
     return [], wall
 
 
@@ -274,8 +316,8 @@ def device_us(fn, reps=20, warmup=3):
     """Device time per call of ``fn``, in us, from the profiler's CUDA
     kernel rows: (the sum over every kernel the calls launched, "name us"
     per kernel).  Unlike ``cuda_ms`` it leaves out the host's time between
-    launches.  Where no profiler session recorded a kernel, the time comes
-    from ``queued_us`` and the one row says so."""
+    launches.  Where no profiler session recorded every launch of every
+    kernel, the time comes from ``queued_us`` and the one row says so."""
     for _ in range(warmup):
         fn()
 
@@ -283,7 +325,7 @@ def device_us(fn, reps=20, warmup=3):
         for _ in range(reps):
             fn()
 
-    rows, _ = profiled(run)
+    rows, _ = profiled(run, reps=reps)
     if not rows:
         us = queued_us(fn, reps)
         return us, [f"queued behind a sleep, CUDA events {us:.2f}"]
@@ -526,6 +568,23 @@ def phase_kernel() -> float:
                              zc.hd(), torch.bfloat16, seed)
         case(f"Tq=387 Tk=792 hd{zc.hd()} bf16 "
              f"{'causal ' if causal else ''}window 96", q, k, v, causal, 96)
+    # granite-34b: 48 query heads on one K/V head; h2o-danube-3-4b: hd 120
+    # (3840 / 32), its window of 4096 masking keys at T = 4300
+    g34, dn = resolve("granite-34b"), resolve("h2o-danube-3-4b")
+    shapes = [(f"granite-34b prefill T={T} G={g34.num_heads}", g34, T, 0)
+              for T in (512, 792)]
+    shapes += [(f"h2o-danube-3-4b prefill T={T} window {dn.sliding_window}",
+                dn, T, dn.sliding_window)
+               for T in (512, LONG_PROMPT[dn.name][0])]
+    for label, cfg, T, window in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            seed += 1
+            q, k, v = qkv_inputs(1, cfg.num_heads, cfg.num_kv_heads, T, T,
+                                 cfg.hd(), dtype, seed)
+            err = case(f"{label} hd{cfg.hd()} {str(dtype)[6:]} causal", q,
+                       k, v, True, window)
+            if dtype == torch.bfloat16:
+                main_err = max(main_err, err)
     if bad:
         raise RuntimeError(f"K1 disagrees with its plain version: {bad}")
     return main_err
@@ -582,41 +641,51 @@ def phase_ssd() -> float:
     return main_err
 
 
-def negative_control(cfg, st1):
-    """(label, state): a state the first decode step must not be right
-    from, a fault of the hand-off from prefill to decode that each family
-    can make."""
+def negative_control(cfg, st1, L):
+    """(label, config, state): a decode step the first decode step of an
+    L-token prompt must not agree with, a fault of the hand-off from
+    prefill to decode that each family can make."""
     if cfg.family in ("ssm", "hybrid"):
-        return "from a zeroed ssm state", ServeState(
+        return "from a zeroed ssm state", cfg, ServeState(
             cache=zero_ssm_state(st1.cache), length=st1.length.clone())
     if cfg.family == "vlm":
         # the decode step forgets the vision prefix in the length
-        return "without the vision prefix in its length", ServeState(
+        return "without the vision prefix in its length", cfg, ServeState(
             cache=st1.cache, length=st1.length - cfg.vision_tokens)
     if cfg.family == "audio":
         # (one position off moved whisper's logits by only 0.6x LOGIT_TOL
         # on its 342-token prompt, on an H100; this gave 26x)
-        return "from a zeroed enc_kv", ServeState(
+        return "from a zeroed enc_kv", cfg, ServeState(
             cache=st1.cache, length=st1.length.clone(),
             enc_kv={k: torch.zeros_like(v) for k, v in st1.enc_kv.items()})
+    if 0 < cfg.sliding_window < L:
+        # past the window: the same step attending to every key
+        return "without its sliding window", dataclasses.replace(
+            cfg, sliding_window=0), st1
     # the same decode step one cache position early (overwrites the last
     # prompt token, rotates at L - 1)
-    return "one position off", ServeState(cache=st1.cache,
-                                          length=st1.length - 1)
+    return "one position off", cfg, ServeState(cache=st1.cache,
+                                               length=st1.length - 1)
 
 
 def check_cached(cfg, params, step, bucket_for, reqs, *, tol, gate=True,
                  served=True) -> None:
     """Cached prefill and first decode step against the no-cache forward
-    (these launches are apart from the counted run), each beside a
-    negative control that the check must see (``negative_control``), and
-    for the recurrent families also the noise floor of the no-cache
-    forward itself (the same forward at chunk 32).  With ``gate`` False
-    the numbers are only printed.  ``served``: these are the served
-    weights, so the prefill must also reproduce each request's first
-    token."""
+    (these launches are apart from the counted run), for the first two
+    requests and the longest, each beside a negative control that the
+    check must see (``negative_control``), and beside a noise floor under
+    a change that is mathematically nothing: for the recurrent families
+    the same no-cache forward at chunk 32, for the others the same
+    prefill at the prompt's exact length (where its bucket is longer).
+    With ``gate`` False the numbers are only printed.  ``served``: these
+    are the served weights, so the prefill must also reproduce each
+    request's first token."""
     recurrent = cfg.family in ("ssm", "hybrid")
-    for r in (reqs[0], reqs[1]):
+    checked = [reqs[0], reqs[1]]
+    longest = max(reqs, key=lambda r: len(r.prompt))
+    if all(longest is not r for r in checked):
+        checked.append(longest)
+    for r in checked:
         prompt = torch.as_tensor(np.asarray(r.prompt, np.int64),
                                  device="cuda")[None]
         extra = None if r.extra is None else \
@@ -632,10 +701,10 @@ def check_cached(cfg, params, step, bucket_for, reqs, *, tol, gate=True,
         first = torch.tensor([[r.out[0]]], device="cuda")
         full = torch.cat([prompt, first], 1)
         ref2, _ = model_forward(params, cfg, full, extra_embeds=extra)
-        control, lost = negative_control(cfg, st1)
+        control, cfg_off, lost = negative_control(cfg, st1, L)
         dec_logits, _ = decode_step(params, cfg, first, st1)
         e_dec = rel_err(dec_logits[0, -1], ref2[0, -1])
-        off, _ = decode_step(params, cfg, first, lost)
+        off, _ = decode_step(params, cfg_off, first, lost)
         e_off = rel_err(off[0, -1], ref2[0, -1])
         first_ok = int(logits[0, -1].float().argmax()) == r.out[0]
         floor = ""
@@ -644,6 +713,17 @@ def check_cached(cfg, params, step, bucket_for, reqs, *, tol, gate=True,
                 cfg, ssm_chunk=32), full)
             floor = (f"; noise floor, the same no-cache forward at chunk "
                      f"32: {rel_err(c32[0, -1], ref2[0, -1]):.3e}")
+        elif b != L:
+            exact, _ = step.prefill(params, prompt, L, extra)
+            floor = (f"; noise floor, the same prefill at its exact length: "
+                     f"{rel_err(exact[0, -1], logits[0, -1]):.3e}")
+        if 0 < cfg.sliding_window < L:
+            # repro's decode_attention keeps one key fewer of the window
+            # than its prefill; the port keeps the prefill's
+            short, _ = decode_step(params, dataclasses.replace(
+                cfg, sliding_window=cfg.sliding_window - 1), first, st1)
+            floor += (f"; the same step with repro's decode window (one key "
+                      f"fewer): {rel_err(short[0, -1], ref2[0, -1]):.3e}")
         log("serve", f"{cfg.name} {cfg.dtype} request {r.rid} (prompt {L}, "
             f"bucket {b}): prefill vs no-cache forward rel err "
             f"{e_pre:.3e}, first decode step {e_dec:.3e} (tol {tol:.0e}"
@@ -658,8 +738,8 @@ def check_cached(cfg, params, step, bucket_for, reqs, *, tol, gate=True,
         if not (e_pre <= tol and e_dec <= tol):
             raise RuntimeError(f"{cfg.name} request {r.rid}: cached logits "
                                f"disagree with the no-cache forward")
-        longest = len(r.prompt) == max(len(q.prompt) for q in reqs)
-        need = CONTROL_FACTOR * tol if recurrent and longest else tol
+        need = CONTROL_FACTOR * tol if r is longest and (
+            recurrent or 0 < cfg.sliding_window < L) else tol
         if e_off <= need:
             raise RuntimeError(f"{cfg.name} request {r.rid}: a decode "
                                f"{control} is within {need:.0e}; the check "
@@ -710,7 +790,27 @@ class DropWatch:
         return out
 
 
+def scenario(cfg, max_seq):
+    """The path's requests: 8 ``mixed`` ones, plus the long one past the
+    window where the path has one (LONG_PROMPT)."""
+    prefix = cfg.vision_tokens if cfg.family == "vlm" else 0
+    reqs = make_scenario(cfg, kind="mixed", n=N_REQ, seed=0,
+                         max_seq=min(max_seq, prefix + SCENARIO_POSITIONS))
+    if cfg.name in LONG_PROMPT:
+        L, new = LONG_PROMPT[cfg.name]
+        prompt = np.random.default_rng([0, L]).integers(1, cfg.vocab_size, L)
+        reqs.append(Request(rid=N_REQ, prompt=prompt.astype(np.int32),
+                            max_new_tokens=new))
+    return reqs
+
+
 def phase_serve(cfg, max_seq):
+    held = torch.cuda.memory_allocated()
+    log("serve", f"{cfg.name}: {held / 2**30:.3f} GiB allocated on the card "
+        f"before init")
+    if held > 2**30:
+        raise RuntimeError(f"{held / 2**30:.2f} GiB still held from earlier "
+                           f"paths")
     t0 = time.perf_counter()
     params = init_model(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -722,7 +822,7 @@ def phase_serve(cfg, max_seq):
            else "")
         + f", d_model {cfg.d_model}, max_seq {max_seq}, init on the card "
         f"in {time.perf_counter() - t0:.1f} s")
-    reqs = make_scenario(cfg, kind="mixed", n=N_REQ, seed=0, max_seq=max_seq)
+    reqs = scenario(cfg, max_seq)
     log("serve", "prompt lengths " + str([len(r.prompt) for r in reqs])
         + ", max_new_tokens " + str([r.max_new_tokens for r in reqs]))
     batcher = ContinuousBatcher(params, cfg, slots=SLOTS, max_seq=max_seq,
@@ -760,13 +860,17 @@ def phase_serve(cfg, max_seq):
                 f"{real:.4%} of the prompt's (token, expert) assignments "
                 f"over {cfg.num_layers} layers (first layer {first:.4%}, "
                 f"last {last:.4%}), {padded:.4%} with the pad tokens")
-    if cfg.family in ("dense", "audio"):
+    if cfg.name in BF16_GATED:
         check_cached(cfg, params, batcher.step, batcher._bucket_for, reqs,
                      tol=LOGIT_TOL)
     else:
         check_cached(cfg, params, batcher.step, batcher._bucket_for, reqs,
                      tol=LOGIT_TOL, gate=False)
         cfg32 = dataclasses.replace(cfg, dtype="float32")
+        if cfg.name in F32_LAYERS:
+            cfg32 = dataclasses.replace(cfg32, num_layers=F32_LAYERS[cfg.name])
+            log("serve", f"{cfg.name}: the f32 check runs the first "
+                f"{cfg32.num_layers} of {cfg.num_layers} layers at full width")
         if cfg.family == "moe":
             # C >= T: nothing drops, so prefill and no-cache forward agree
             cfg32 = dataclasses.replace(
@@ -777,8 +881,129 @@ def phase_serve(cfg, max_seq):
                                   device="cuda")
         check_cached(cfg32, params32, step32, batcher._bucket_for, reqs,
                      tol=F32_LOGIT_TOL, served=False)
+        if cfg32.num_layers == cfg.num_layers and cfg.family != "moe":
+            bf16_resolution(cfg, params, cfg32, params32, batcher.step,
+                            batcher._bucket_for, reqs[0])
         del params32, step32
-    return batcher, stats, launches
+    return batcher, stats, launches, reqs
+
+
+def bf16_resolution(cfg, params, cfg32, params32, step, bucket_for, r):
+    """How far bf16 moves this path's logits from the same weights in f32
+    (the bf16 weights are the f32 ones rounded), for the no-cache forward
+    and for the cached first decode step of request ``r``: a gap between
+    the two bf16 paths no larger than their distances from f32 is bf16's
+    resolution, not a fault (the f32 gate holds the function itself)."""
+    prompt = torch.as_tensor(np.asarray(r.prompt, np.int64),
+                             device="cuda")[None]
+    extra = None if r.extra is None else \
+        torch.as_tensor(r.extra, device="cuda")[None]
+    L = prompt.shape[1]
+    full = torch.cat([prompt, torch.tensor([[r.out[0]]], device="cuda")], 1)
+    f32, _ = model_forward(params32, cfg32, full, extra_embeds=extra)
+    nc16, _ = model_forward(params, cfg, full, extra_embeds=extra)
+    toks = torch.zeros((1, bucket_for(L)), dtype=torch.long, device="cuda")
+    toks[0, :L] = prompt[0]
+    _, st1 = step.prefill(params, toks, L, extra)
+    dec16, _ = decode_step(params, cfg, full[:, -1:], st1)
+    log("serve", f"{cfg.name} bf16 resolution, request {r.rid} (prompt {L}),"
+        f" first decode position: the bf16 no-cache forward is "
+        f"{rel_err(nc16[0, -1], f32[0, -1]):.3e} from the f32 one, the bf16 "
+        f"cached decode step {rel_err(dec16[0, -1], f32[0, -1]):.3e} from "
+        f"it, and {rel_err(dec16[0, -1], nc16[0, -1]):.3e} from the bf16 "
+        f"no-cache forward")
+
+
+def prng_on_card() -> None:
+    """The sampler's threefry on the card against the same keys on the
+    CPU: bits and uniforms equal bit for bit, the Gumbel noise within
+    GUMBEL_ULPS (the two devices' ``log`` differ by an ulp or so)."""
+    worst = 0.0
+    for seed, rid, pos in ((0, 0, 0), (1234, 5, 17), (7, 2**31 + 5, 999)):
+        keys = [prng.fold_in(prng.fold_in(prng.prng_key(seed, d), rid), pos)
+                for d in ("cuda", "cpu")]
+        for shape in ((128256,), (4, 32001)):
+            bits = [prng.random_bits(k, shape).cpu() for k in keys]
+            uni = [prng.uniform(k, shape).cpu().view(torch.int32)
+                   for k in keys]
+            g = [prng.gumbel(k, shape).cpu() for k in keys]
+            if not (torch.equal(*bits) and torch.equal(*uni)):
+                raise RuntimeError(f"threefry bits differ between the card "
+                                   f"and the CPU (seed {seed}, rid {rid}, "
+                                   f"position {pos}, shape {shape})")
+            ulp = torch.from_numpy(np.spacing(
+                np.maximum(g[1].abs().numpy(), 1).astype(np.float32)))
+            worst = max(worst, float(((g[0] - g[1]).abs() / ulp).max()))
+    log("sample", f"threefry on the card = on the CPU: bits and uniforms "
+        f"equal for 3 keys x shapes (128256,), (4, 32001); Gumbel noise "
+        f"at most {worst:.1f} ulps of max(|g|, 1) apart (limit "
+        f"{GUMBEL_ULPS})")
+    if worst > GUMBEL_ULPS:
+        raise RuntimeError("the card's Gumbel noise is too far from the "
+                           "CPU's")
+
+
+def phase_sampled(cfg, batcher, greedy) -> dict:
+    """``cfg``'s requests served sampled at each of SAMPLERS: once batched
+    at SLOTS slots (the counted run) and once request by request at batch
+    1; each request's tokens must be identical.  Prints how many tokens
+    differ from the greedy run's (``greedy``) and the sampler's time
+    beside a decode step's.  Returns the batched runs' launch counts."""
+    prng_on_card()
+    step1 = build_serve_step(cfg, max_seq=batcher.max_seq, slots=1,
+                             device="cuda")
+    launches = {}
+    for s in SAMPLERS:
+        name = f"{cfg.name} sampled T={s.temperature:g}"
+        reqs = scenario(cfg, batcher.max_seq)
+        eng = ContinuousBatcher(batcher.hosted, cfg, slots=SLOTS,
+                                max_seq=batcher.max_seq, sampler=s,
+                                step=batcher.step)
+        fa.launches = k2.launches = 0
+        _, stats = eng.run(reqs)
+        torch.cuda.synchronize()
+        launches[name] = {"flash_attention": fa.launches, "ssd": k2.launches}
+        want = expected_launches(cfg, len(reqs))
+        if launches[name] != want:
+            raise RuntimeError(f"{name}: kernel launches {launches[name]}, "
+                               f"want {want}")
+        for r in reqs:
+            alone = Request(r.rid, r.prompt, max_new_tokens=r.max_new_tokens)
+            ContinuousBatcher(batcher.hosted, cfg, slots=1,
+                              max_seq=batcher.max_seq, sampler=s,
+                              step=step1).run([alone])
+            if alone.out != r.out or len(r.out) != r.max_new_tokens:
+                raise RuntimeError(f"{name} request {r.rid}: batched "
+                                   f"{r.out}, alone {alone.out}")
+        n = sum(len(r.out) for r in reqs)
+        differ = sum(a != b for r, g in zip(reqs, greedy)
+                     for a, b in zip(r.out, g.out))
+        log("sample", f"{name} top_p={s.top_p} seed={s.seed}: {len(reqs)} "
+            f"requests, batched at {SLOTS} slots == request by request "
+            f"({n} tokens identical); {differ} of {n} tokens differ from "
+            f"greedy; launches {launches[name]}; {stats['steps']} steps, "
+            f"{stats['wall_s']:.3f} s")
+    # the sampler's time beside a decode step's, at 4 rows of the vocab
+    tok = np.zeros((SLOTS, 1), np.int64)
+    logits, _ = batcher.step.decode(batcher.hosted, tok, batcher.state)
+    rows = logits[:, -1]
+    draw = lambda: sample_token(rows, SAMPLERS[0], list(range(SLOTS)),
+                                [9] * SLOTS)
+    ms = cuda_ms(draw, reps=20, warmup=3)
+    # device time from the profiler only: the keys' copy to the card may
+    # wait for a pinned buffer, so the calls cannot be queued behind a sleep
+    rows, _ = profiled(lambda: [draw() for _ in range(20)], reps=20)
+    dev = (f"{sum(r.self_device_time_total for r in rows) / 20:.1f} us "
+           f"in {sum(r.count for r in rows) // 20} device operations"
+           if rows else "not measured")
+    dec = host_ms(lambda: batcher.step.decode(batcher.hosted, tok,
+                                              batcher.state), reps=10,
+                  warmup=2)
+    log("sample", f"{cfg.name} sampler, {SLOTS} rows x {cfg.vocab_size}: "
+        f"{ms:.3f} ms host+device per call, device {dev}; a decode step "
+        f"{dec:.3f} ms; the sampler is {ms / (ms + dec):.1%} of a sampled "
+        f"step")
+    return launches
 
 
 def extra_inputs(cfg, g):
@@ -793,7 +1018,7 @@ def extra_inputs(cfg, g):
 def phase_perf(cfg, name, batcher, stats):
     step, hosted = batcher.step, batcher.hosted
     g = torch.Generator(device="cuda").manual_seed(1)
-    lengths = PERF_T.get(cfg.family, (64, 512, 792))
+    lengths = PERF_T.get(cfg.name, PERF_T.get(cfg.family, (64, 512, 792)))
     traced_T = TRACED_T.get(cfg.family, 512)
     extra = extra_inputs(cfg, g)
     prefix = cfg.vision_tokens if cfg.family == "vlm" else 0
@@ -836,26 +1061,37 @@ def phase_perf(cfg, name, batcher, stats):
             f"layer); most device time (ms): {'; '.join(top)}")
 
 
-def time_k1(name, B, H, K, T, hd, *, causal=True):
+def time_k1(name, B, H, K, T, hd, *, causal=True, window=0):
     """K1 at a prefill shape (bf16, L2 warm) beside its bound, its plain
-    version and scaled_dot_product_attention."""
+    version and scaled_dot_product_attention (with a window: given as a
+    boolean mask, the same function)."""
     q, k, v = qkv_inputs(B, H, K, T, T, hd, torch.bfloat16, 99)
     launches = fa.launches
-    run = lambda: fa.flash_attention_cuda(q, k, v, causal=causal)
+    run = lambda: fa.flash_attention_cuda(q, k, v, causal=causal,
+                                          window=window)
     ms = cuda_ms(run)
     dev, dev_rows = device_us(run)
     dev_q = queued_us(run)
     fa.launches = launches
-    plain = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=causal),
-                    reps=20)
-    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
-                                                  enable_gqa=True)
+    plain = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=causal,
+                                              window=window), reps=20)
+    if window:
+        pos = torch.arange(q.shape[2], device="cuda")
+        mask = pos[None, :] >= pos[:, None] - window
+        if causal:
+            mask &= pos[None, :] <= pos[:, None]
+        sdpa = lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True)
+    else:
+        sdpa = lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True)
     lib = cuda_ms(sdpa)
     lib_dev, lib_rows = device_us(sdpa)
     lib_q = queued_us(sdpa)
-    bound, bound_by = k1_bound(q, k, causal=causal, window=0)
+    bound, bound_by = k1_bound(q, k, causal=causal, window=window)
     log("perf", f"{name} | K1 T={T} (B{B} H{H} K{K} hd{hd} bf16 "
-        f"{'causal' if causal else 'non-causal'}, L2 warm): device "
+        f"{'causal' if causal else 'non-causal'}"
+        f"{f' window {window}' if window else ''}, L2 warm): device "
         f"{dev:.2f} us/launch ({'; '.join(dev_rows)}; queued {dev_q:.2f}), "
         f"host+device {ms * 1e3:.2f} us/call; bound {bound * 1e3:.2f} us "
         f"({bound_by}); plain {plain * 1e3:.2f} us; sdpa device "
@@ -896,6 +1132,7 @@ def timed(label, fn, *args, **kw):
     return out
 
 
+@torch.no_grad()          # the kernels have no backward; nothing here trains
 def main() -> int:
     t_start = time.perf_counter()
     name = timed("device", phase_device)
@@ -905,12 +1142,14 @@ def main() -> int:
     launches = {}
     for arch in PATHS:
         cfg = resolve(arch)
-        batcher, stats, launches[arch] = timed(
+        batcher, stats, launches[arch], reqs = timed(
             f"serve {arch}", phase_serve, cfg, MAX_SEQ.get(arch, 1024))
         timed(f"perf {arch}", phase_perf, cfg, name, batcher, stats)
         if arch == "llama3.2-3b":
             k1 = timed("time K1", time_k1, name, 1, cfg.num_heads,
                        cfg.num_kv_heads, 512, cfg.hd())
+            launches.update(timed(f"sampled {arch}", phase_sampled, cfg,
+                                  batcher, reqs))
         elif arch == "mamba2-780m":
             k2_t = timed("time K2", time_k2, name, cfg)
         elif arch == "zamba2-7b":
@@ -923,7 +1162,15 @@ def main() -> int:
         elif arch == "whisper-large-v3":
             timed("time K1", time_k1, name, 1, cfg.num_heads,
                   cfg.num_kv_heads, cfg.encoder_seq, cfg.hd(), causal=False)
-        del batcher
+        elif arch == "granite-34b":
+            timed("time K1", time_k1, name, 1, cfg.num_heads,
+                  cfg.num_kv_heads, 512, cfg.hd())
+        elif arch == "h2o-danube-3-4b":
+            for T in (512, LONG_PROMPT[arch][0]):
+                timed("time K1", time_k1, name, 1, cfg.num_heads,
+                      cfg.num_kv_heads, T, cfg.hd(),
+                      window=cfg.sliding_window)
+        del batcher, reqs
         torch.cuda.empty_cache()
     log("time", f"total: {time.perf_counter() - t_start:.1f} s")
     by_path = {k: {a: n[k] for a, n in launches.items()}

@@ -35,9 +35,11 @@
 // products to the tensor cores and keeps the tiles bf16 in shared memory.
 //
 // The f32 design.  Q, K, V and P tiles sit in shared memory as f32; 256
-// threads each own a 4 x 4 block of the score tile and 4 rows x hd/16
-// columns of the accumulator (at hd 112 the tiles take 103 KB of shared
-// memory), and both products are plain FMAs.
+// threads each own a 4 x 4 block of the score tile and 4 rows x
+// ceil(hd/16) columns of the accumulator (at hd 120, h2o-danube-3-4b's
+// 3840 / 32, the eighth column exists for half of the threads; at hd 120
+// the tiles take 109 KB of shared memory), and both products are plain
+// FMAs.
 //
 // The bf16 design.  Eight warps: four stripes of 16 of the block's 64 q
 // rows, times two halves of each 64-key tile, so that the longest causal
@@ -58,6 +60,14 @@
 // Each thread sums its own part of l and the quad adds them once at the
 // end.  The grid is (H, q tiles, B) with the q tiles in reverse, so the
 // heaviest causal tiles of every head start first on the 132 SMs.
+// Head dims that are not a multiple of 16 (hd 120): mma.m16n8k16 takes
+// 16 columns a k-step, so the q, K and V rows sit in shared memory padded
+// to the next multiple of 16 (120 -> 128), and the pad is zeros: cp.async
+// zero-fills the 16-byte chunks past hd instead of reading them, so the
+// last k-step of q . k^T adds 0 . 0.  P . V's 8-wide n-tiles cover hd
+// exactly (120 = 15 of them); the last 16-column ldmatrix of V feeds only
+// its first n-tile, and only hd columns are stored.  Global rows stay
+// 16-byte aligned (240 bytes = 15 chunks).
 // Where it rounds: q, k and v are bf16 inputs and their products are exact
 // in f32; S, m, l and the accumulator are f32 sums; the scale is one f32
 // multiply after the product (the TPU scales q before it, an f32
@@ -119,7 +129,11 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            int H, int KH, int Tq, int Tk, int causal,
                            int window, float scale) {
   constexpr int LD = HD + 1;
-  constexpr int DC = HD / 16;  // accumulator columns per thread
+  constexpr int DC = (HD + 15) / 16;  // accumulator columns per thread
+  // a thread's column tx + 16 c exists (always, when 16 divides HD)
+  auto has_col = [](int tx, int c) {
+    return HD % 16 == 0 || tx + 16 * c < HD;
+  };
   extern __shared__ float smem[];
   float* qs = smem;            // BQ x LD
   float* ks = qs + BQ * LD;    // BK x LD
@@ -229,7 +243,7 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int i = 0; i < 4; ++i) p[i] = ps[(ty + 16 * i) * PLD + j];
 #pragma unroll
       for (int c = 0; c < DC; ++c) {
-        const float vv = vs[j * HD + tx + 16 * c];
+        const float vv = has_col(tx, c) ? vs[j * HD + tx + 16 * c] : 0.f;
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(p[i], vv, acc[i][c]);
       }
@@ -243,7 +257,8 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < DC; ++c)
-      og[(size_t)r * HD + tx + 16 * c] = from_f32<T>(acc[i][c] / den);
+      if (has_col(tx, c))
+        og[(size_t)r * HD + tx + 16 * c] = from_f32<T>(acc[i][c] / den);
   }
 }
 
@@ -279,6 +294,9 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
     case 112:  // zamba2's shared attention block: 3584 / 32 heads
       return launch<T, 112>(q, k, v, o, B, H, KH, Tq, Tk, causal, window,
                             scale, stream);
+    case 120:  // h2o-danube-3-4b: 3840 / 32 heads
+      return launch<T, 120>(q, k, v, o, B, H, KH, Tq, Tk, causal, window,
+                            scale, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, B, H, KH, Tq, Tk, causal, window,
                             scale, stream);
@@ -298,14 +316,21 @@ constexpr int TC_PAD = 8;      // bf16 of padding per smem row
 constexpr int STAGES = 2;      // K/V tile buffers: one in use, one loading
 constexpr float LOG2E = 1.4426950408889634f;
 
+// a tile row's columns in shared memory: hd padded to a whole k-step
+template <int HD>
+__host__ __device__ constexpr int tc_cols() {
+  return (HD + 15) / 16 * 16;
+}
+
 template <int HD>
 constexpr size_t tc_smem_bytes() {
-  // q tile + STAGES K and V tiles, bf16, rows of HD + TC_PAD; after the
-  // loop the K tiles hold the second key half's m, l and accumulator
+  // q tile + STAGES K and V tiles, bf16, rows of tc_cols + TC_PAD; after
+  // the loop the K tiles hold the second key half's m, l and accumulator
+  constexpr int LD = tc_cols<HD>() + TC_PAD;
   static_assert(sizeof(float) * (BQ * HD + 2 * BQ) <=
-                    sizeof(__nv_bfloat16) * STAGES * BK * (HD + TC_PAD),
+                    sizeof(__nv_bfloat16) * STAGES * BK * LD,
                 "the merge area must fit in the K tiles");
-  return sizeof(__nv_bfloat16) * (BQ + 2 * STAGES * BK) * (HD + TC_PAD);
+  return sizeof(__nv_bfloat16) * (BQ + 2 * STAGES * BK) * LD;
 }
 
 template <int HD>
@@ -316,11 +341,12 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                             __nv_bfloat16* __restrict__ o, int H, int KH,
                             int Tq, int Tk, int causal, int window,
                             float scale_log2) {
-  constexpr int LD = HD + TC_PAD;   // smem row stride (bf16)
-  constexpr int CH = HD / 8;        // 16-byte chunks per row
-  constexpr int KS = HD / 16;       // k-steps of q . k^T
-  constexpr int ND = HD / 8;        // 8-wide n-tiles of the output
-  constexpr int KW = BK / 2;        // keys of a tile per warp
+  constexpr int HDP = tc_cols<HD>();  // row columns in smem, zero past HD
+  constexpr int LD = HDP + TC_PAD;    // smem row stride (bf16)
+  constexpr int CH = HDP / 8;         // 16-byte chunks per smem row
+  constexpr int KS = HDP / 16;        // k-steps of q . k^T
+  constexpr int ND = HD / 8;          // 8-wide n-tiles of the output
+  constexpr int KW = BK / 2;          // keys of a tile per warp
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* ks = qs + BQ * LD;            // [STAGES][BK][LD]
@@ -348,13 +374,14 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int kt_begin = k_lo / BK;
   const int kt_end = (k_hi + BK - 1) / BK;
 
-  // rows past Tq / Tk are zero-filled (a zero V row meets p = 0 there)
+  // rows past Tq / Tk are zero-filled (a zero V row meets p = 0 there),
+  // and so are the columns past HD
   auto load_kv = [&](int kt, int buf) {
     const int k0 = kt * BK;
     for (int i = tid; i < BK * CH; i += TC_NT) {
       const int r = i / CH, c = (i % CH) * 8;
-      const bool in = k0 + r < Tk;
-      const size_t src = (size_t)(in ? k0 + r : 0) * HD + c;
+      const bool in = k0 + r < Tk && c < HD;
+      const size_t src = in ? (size_t)(k0 + r) * HD + c : 0;
       const int dst = (buf * BK + r) * LD + c;
       tc::cp_async16(ks + dst, kg + src, in);
       tc::cp_async16(vs + dst, vg + src, in);
@@ -363,9 +390,9 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   if (kt_begin < kt_end) {
     for (int i = tid; i < BQ * CH; i += TC_NT) {
       const int r = i / CH, c = (i % CH) * 8;
-      const bool in = q0 + r < Tq;
+      const bool in = q0 + r < Tq && c < HD;
       tc::cp_async16(qs + r * LD + c,
-                     qg + (size_t)(in ? q0 + r : 0) * HD + c, in);
+                     qg + (in ? (size_t)(q0 + r) * HD + c : 0), in);
     }
   }
   const int nt = kt_end - kt_begin;
@@ -470,13 +497,13 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
           tc::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
           tc::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int dp = 0; dp < HD / 16; ++dp) {
+      for (int dp = 0; dp < HDP / 16; ++dp) {
         uint32_t bv[4];   // keys kk*16 + 0..15, d dp*16 + 0..7 and + 8..15
         tc::ldsm_x4_trans(bv, vb + (kk * 16 + ((lane >> 3) & 1) * 8 +
                                     (lane & 7)) * LD +
                                   dp * 16 + (lane >> 4) * 8);
         tc::mma_bf16(acc[2 * dp], pa, bv[0], bv[1]);
-        tc::mma_bf16(acc[2 * dp + 1], pa, bv[2], bv[3]);
+        if (2 * dp + 1 < ND) tc::mma_bf16(acc[2 * dp + 1], pa, bv[2], bv[3]);
       }
     }
     __syncthreads();  // this tile's readers are done before it is refilled
@@ -566,6 +593,9 @@ cudaError_t dispatch_bf16(const void* q, const void* k, const void* v,
                              scale, stream);
     case 112:
       return launch_bf16<112>(q, k, v, o, B, H, KH, Tq, Tk, causal, window,
+                              scale, stream);
+    case 120:
+      return launch_bf16<120>(q, k, v, o, B, H, KH, Tq, Tk, causal, window,
                               scale, stream);
     case 128:
       return launch_bf16<128>(q, k, v, o, B, H, KH, Tq, Tk, causal, window,

@@ -8,7 +8,9 @@ into a shared library with a plain C interface, whose one entry point
 chooses the kernel by dtype: bfloat16 (every serving path) runs on the
 tensor cores, float32 on the CUDA cores.  One call is one launch.
 
-``flash_attention_cuda`` takes CUDA tensors only; the plain version is
+``flash_attention_cuda`` takes CUDA tensors only, and refuses an input
+that requires grad while grad mode is on: the kernel has no backward yet,
+and a loss through it would get no gradient.  The plain version is
 ``kernels.ref.attention_ref`` and ``kernels.ops.flash_attention`` chooses
 between them by the tensors' device.  ``launches`` counts the launches.
 """
@@ -24,7 +26,7 @@ from ._build import Library
 LIBRARY = Library("flash_attention", {"repro_flash_attention_fwd": (
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
     + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int)})
-HEAD_DIMS = (32, 64, 112, 128)
+HEAD_DIMS = (32, 64, 112, 120, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 ALIGN = 16            # the bf16 kernel copies 16-byte chunks
 
@@ -37,6 +39,12 @@ def build() -> ctypes.CDLL:
 
 
 def _check(q, k, v):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention_cuda: an input requires grad, and K1 has no "
+            "backward yet (it comes with training, ROADMAP.md, Queue 1, "
+            "item 6); call it under torch.no_grad() or "
+            "torch.inference_mode()")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError(f"flash_attention_cuda: {name} is on "

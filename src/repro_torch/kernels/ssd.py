@@ -12,7 +12,8 @@ and where they round.  ``nvcc`` builds it at first use
 recurrence between them), float32 the CUDA-core kernel.  One call is one
 launch of K2.
 
-``ssd_cuda`` takes CUDA tensors only; the plain version is
+``ssd_cuda`` takes CUDA tensors only, and refuses an input that requires
+grad while grad mode is on (no backward yet).  The plain version is
 ``kernels.ref.ssd_chunked_ref`` and ``kernels.ops.ssd`` chooses between
 them by the tensors' device.  ``launches`` counts the launches.
 """
@@ -64,6 +65,11 @@ def _check(x, dt, A, B, C, init_state, chunk):
     named = [("x", x), ("dt", dt), ("A", A), ("B", B), ("C", C)]
     if init_state is not None:
         named.append(("init_state", init_state))
+    if torch.is_grad_enabled() and any(t.requires_grad for _, t in named):
+        raise RuntimeError(
+            "ssd_cuda: an input requires grad, and K2 has no backward yet "
+            "(it comes with training, ROADMAP.md, Queue 1, item 6); call "
+            "it under torch.no_grad() or torch.inference_mode()")
     for name, t in named:
         if t.device.type != "cuda":
             raise ValueError(f"ssd_cuda: {name} is on {t.device}, not a "

@@ -75,8 +75,16 @@ def attention(q, k, v, *, causal: bool, window: int = 0):
 
 def decode_attention(q, kcache, vcache, cache_len, *, window: int = 0):
     """q: (B, 1, H, hd); caches: (B, S, K, hd); cache_len: (B,) or scalar
-    count of valid cache positions.  Scores and the PV sum are f32; p is
-    cast to the cache's type before PV, as in ``repro``."""
+    count of valid cache positions, the query's own included.  Scores and
+    the PV sum are f32; p is cast to the cache's type before PV, as in
+    ``repro``.
+
+    The window keeps the keys at positions >= qpos - window (qpos =
+    cache_len - 1): window + 1 keys, as K1, the no-cache forward and
+    ``repro``'s prefill keep them, so that a cached decode step equals the
+    no-cache forward at every length.  ``repro``'s own ``decode_attention``
+    keeps one key fewer (positions >= cache_len - window); the port departs
+    from it there (ROADMAP.md, Queue 3)."""
     B, _, H, hd = q.shape
     S, K = kcache.shape[1], kcache.shape[2]
     G = H // K
@@ -89,7 +97,7 @@ def decode_attention(q, kcache, vcache, cache_len, *, window: int = 0):
     pos = torch.arange(S, device=q.device)
     valid = pos[None, :] < cache_len[:, None]
     if window:
-        valid = valid & (pos[None, :] >= cache_len[:, None] - window)
+        valid = valid & (pos[None, :] >= cache_len[:, None] - 1 - window)
     s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)

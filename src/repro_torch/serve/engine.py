@@ -2,9 +2,11 @@
 
 Counterpart of ``repro.serve.engine``, with the same contracts:
 
-  * batched == sequential: greedy continuous batching is token-identical
-    to decoding each request alone at batch 1 — decode rows are
-    independent and prefill is per-request batch-1.
+  * batched == sequential: continuous batching, greedy or sampled, is
+    token-identical to decoding each request alone at batch 1 — decode
+    rows are independent, prefill is per-request batch-1, and a sampled
+    token is keyed by its request's (seed, rid, position) alone
+    (``serve.sampling``).
   * admission: a prompt longer than its bucket selects a larger bucket
     (never truncated); a request that cannot fit
     ``prefix + len(prompt) + max_new_tokens`` inside ``max_seq`` raises
@@ -15,12 +17,14 @@ Counterpart of ``repro.serve.engine``, with the same contracts:
 The engine owns only host-side bookkeeping (slots, admission, sampling,
 termination, latency); the :class:`~repro_torch.serve.steps.ServeStep`
 runs the model on its device.  Each step's logits are reduced to token
-ids on the device, and only the ids come back to the host.
+ids on the device (greedy or sampled, every slot's row in one pass), and
+only the ids come back to the host.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+import zlib
 from typing import Any, Optional
 
 import numpy as np
@@ -70,12 +74,20 @@ def termination_reason(token: int, n_out: int, length: int, *,
     return None
 
 
+def _int_rid(rid) -> int:
+    """Stable uint32 for the sampling key (non-int rids hash via crc32)."""
+    if isinstance(rid, (int, np.integer)):
+        return int(rid) & 0xFFFFFFFF
+    return zlib.crc32(str(rid).encode()) & 0xFFFFFFFF
+
+
 class ContinuousBatcher:
     """Slot-based continuous batching over one ServeStep.
 
     params    weights on ``device`` (``models.init_model`` or
               ``bridge.params_from_repro``).
-    sampler   None or greedy; ``temperature > 0`` is not ported yet.
+    sampler   None = greedy argmax; a SamplerConfig = seeded temperature/
+              top-p sampling keyed by (seed, rid, position).
     device    where the model runs; defaults to ``"cuda"`` and raises
               when there is no GPU.
     step      inject a prebuilt ServeStep (its device wins).
@@ -89,10 +101,6 @@ class ContinuousBatcher:
         self.slots = int(slots)
         self.max_seq = int(max_seq)
         self.eos_id = int(eos_id)
-        if sampler is not None and not sampler.greedy:
-            raise NotImplementedError(
-                "temperature > 0 needs the threefry sampler, which is not "
-                "ported yet (ROADMAP.md, Queue 1, item 5)")
         self.sampler = sampler
         if step is not None:
             if (step.ctx.max_seq, step.ctx.slots) != (self.max_seq,
@@ -113,7 +121,16 @@ class ContinuousBatcher:
         self._last_tok = np.zeros((self.slots,), np.int64)
         self._prefix = cfg.vision_tokens if cfg.family == "vlm" else 0
 
-    # -- termination ------------------------------------------------------
+    # -- sampling / termination -------------------------------------------
+
+    def _next_tokens(self, rows, reqs) -> list:
+        """One token per logits row (rows: (n, V) on the device), each
+        sampled at its request's own position ``len(req.out)`` (0 = the
+        prefill-produced token); a row without a request (None: an idle
+        slot) is drawn at rid 0, position 0 and left unread."""
+        rids = [0 if r is None else _int_rid(r.rid) for r in reqs]
+        pos = [0 if r is None else len(r.out) for r in reqs]
+        return sample_token(rows, self.sampler, rids, pos).tolist()
 
     def _finish_if_done(self, req: Request, token: int,
                         length: int) -> bool:
@@ -187,7 +204,7 @@ class ContinuousBatcher:
                                         self._extra_embeds(req))
         if req.t_arrival is None:
             req.t_arrival = time.perf_counter()
-        t = int(sample_token(logits[0, -1], self.sampler))
+        t, = self._next_tokens(logits[:, -1], [req])
         req.out.append(t)
         req.t_first = time.perf_counter()
         if self._finish_if_done(req, t, self._prefix + L):
@@ -204,11 +221,12 @@ class ContinuousBatcher:
         active ones).  Returns the number of tokens appended."""
         tok = self._last_tok.reshape(self.slots, 1)
         logits, self.state = self.step.decode(self.hosted, tok, self.state)
-        toks = sample_token(logits[:, -1], self.sampler).cpu().numpy()
+        toks = self._next_tokens(logits[:, -1], [
+            self._active.get(slot) for slot in range(self.slots)])
         lengths = self.state.length.cpu().numpy()
         produced = 0
         for slot, req in list(self._active.items()):
-            t = int(toks[slot])
+            t = toks[slot]
             req.out.append(t)
             self._last_tok[slot] = t
             produced += 1

@@ -17,6 +17,10 @@ A :class:`ServeStep` is hosting-agnostic to its caller (the engine):
   decode(hosted, tok (slots, 1), state) -> (logits (slots, 1, V), state)
   splice(state, state1, slot) -> state   write the batch-1 state into
       ``slot`` in place
+
+``prefill``, ``decode`` and ``splice`` run under ``torch.no_grad()``:
+serving asks for no gradient, and the kernels' wrappers refuse an input
+that requires grad while grad mode is on (they have no backward yet).
 """
 from __future__ import annotations
 
@@ -102,6 +106,7 @@ def _serve_replicated(ctx: ServeContext) -> ServeStep:
     def _init():
         return _init_serve_state(cfg, ctx.slots, ctx.max_seq, dev)
 
+    @torch.no_grad()
     def _prefill(params, toks, true_len, extra=None):
         # a batch-1 cache of the family's own structure
         cache1 = init_cache(cfg, 1, ctx.max_seq, dtype=torch_dtype(cfg),
@@ -112,10 +117,12 @@ def _serve_replicated(ctx: ServeContext) -> ServeStep:
         return prefill(params, cfg, toks, cache1, extra_embeds=extra,
                        true_len=true_len)
 
+    @torch.no_grad()
     def _decode(params, tok, state):
         tok = torch.as_tensor(tok, dtype=torch.long, device=dev)
         return decode_step(params, cfg, tok, state)
 
+    @torch.no_grad()
     def _splice(state, st1, slot):
         _splice_tree(state.cache, st1.cache, int(slot))
         if state.enc_kv is not None:

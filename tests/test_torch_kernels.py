@@ -93,6 +93,44 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     assert fa.launches == 0
 
 
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_cuda_wrapper_refuses_grad(which):
+    """K1 has no backward yet: under grad mode an input that requires
+    grad raises (before any device test, so it is pinned here without a
+    card), naming the training item of ROADMAP.md; under no_grad or
+    inference_mode the same call reaches the device test."""
+    _, qkv = _inputs(1, 2, 2, 16, 16, 32, "f32")
+    qkv[which].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward.*item 6"):
+        fa.flash_attention_cuda(*qkv)
+    for mode in (torch.no_grad, torch.inference_mode):
+        with mode(), pytest.raises(ValueError, match="not a CUDA device"):
+            fa.flash_attention_cuda(*qkv)
+    assert fa.launches == 0
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", [
+    (1, 4, 2, 256, 256, True, 96),       # window masking keys, GQA
+    (1, 2, 1, 192, 192, True, 0),        # MQA, causal
+    (2, 2, 2, 128, 128, False, 40),      # window without causality
+], ids=["window96", "mqa_causal", "window40_full"])
+def test_flash_attention_hd120_matches_repro(shape, dtype):
+    """Head dim 120 (h2o-danube-3-4b: 3840 / 32), which K1's tensor-core
+    design pads to 128 columns in shared memory: the plain version against
+    repro's Pallas kernel in interpret mode, with a window that really
+    masks keys."""
+    B, H, K, Tq, Tk, causal, window = shape
+    (jq, jk, jv), (q, k, v) = _inputs(B, H, K, Tq, Tk, 120, dtype, seed=120)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = flash_attention_tpu(jq, jk, jv, causal=causal, window=window,
+                               block_q=64, block_k=64, interpret=True)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    tol = DTYPES[dtype][3]
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+    assert 120 in fa.HEAD_DIMS
+
+
 def test_k1_signature_is_set_at_load():
     """K1's C entry point's ctypes signature, set once when the library
     loads (not on every call): four pointers, nine ints (dtype among
@@ -207,6 +245,7 @@ K1_MODEL_SHAPES = [
     (1, 8, 2, 256, 512, 32),      # GQA, Tq != Tk
     (1, 2, 2, 387, 387, 112),     # ragged, zamba2-7b's head dim
     (1, 2, 1, 3, 3, 128),         # shorter than one tile
+    (1, 4, 2, 200, 200, 120),     # h2o-danube-3-4b's head dim
 ]
 
 

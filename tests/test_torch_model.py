@@ -119,6 +119,10 @@ def test_qkv():
 
 @pytest.mark.parametrize("window", [0, 5])
 def test_decode_attention(window):
+    """The port's decode window keeps window + 1 keys, as repro's prefill
+    and no-cache forward do; repro's decode_attention keeps window, so it
+    is compared at window + 1 (a departure of the port, ROADMAP.md,
+    Queue 3)."""
     B, S, H, K, hd = 3, 24, 4, 2, 16
     q, kc, vc = _rand((B, 1, H, hd), 6), _rand((B, S, K, hd), 7), \
         _rand((B, S, K, hd), 8)
@@ -128,7 +132,8 @@ def test_decode_attention(window):
                               window=window),
            jA.decode_attention(jnp.asarray(q), jnp.asarray(kc),
                                jnp.asarray(vc), jnp.asarray(lens),
-                               window=window), TOL["float32"])
+                               window=window + 1 if window else 0),
+           TOL["float32"])
 
 
 # ---------------------------------------------------------------------------
@@ -147,8 +152,12 @@ def test_model_forward(arch, dtype):
 @pytest.mark.parametrize("arch,dtype", CASES)
 def test_prefill_and_decode(arch, dtype):
     """A 21-token prompt padded to a 32 bucket (``true_len`` < bucket),
-    then four decode steps: logits, cache and lengths against repro."""
+    then four decode steps: logits, cache and lengths against repro
+    (whose decode keeps one key fewer of a sliding window than its
+    prefill, so its decode runs at window + 1: see test_decode_attention)."""
     jc, tc, jp, tp = _weights(dtype, arch)
+    jdc = dataclasses.replace(jc, sliding_window=jc.sliding_window + 1) \
+        if jc.sliding_window else jc
     S, T, true_len = 48, 32, 21
     rng = np.random.default_rng(10)
     toks = np.zeros((1, T), np.int64)
@@ -166,11 +175,33 @@ def test_prefill_and_decode(arch, dtype):
         tok = np.asarray(jnp.argmax(want[:, -1], -1))[:, None]
         got, st = decode_step(tp, tc, torch.tensor(tok, dtype=torch.long),
                               st)
-        want, jst = jdecode(jp, jc, jnp.asarray(tok, jnp.int32), jst)
+        want, jst = jdecode(jp, jdc, jnp.asarray(tok, jnp.int32), jst)
         _close(got, want, TOL[dtype])
         assert st.length.tolist() == np.asarray(jst.length).tolist()
     for name in ("k", "v"):
         _close(st.cache[name], jst.cache[name], TOL[dtype])
+
+
+@pytest.mark.parametrize("L", [10, 16, 17, 40])
+def test_sliding_window_decode_equals_no_cache_forward(L):
+    """h2o-danube-3-4b (window 16 at smoke size) in f32: a prompt shorter
+    than, at and past the window, then three decode steps; each step's
+    logits equal repro's no-cache forward over the prompt and the tokens
+    so far (K1's window: positions >= qpos - window), as the prefill's
+    do."""
+    jc, tc, jp, tp = _weights("float32", "h2o-danube-3-4b")
+    toks = np.random.default_rng(L).integers(1, tc.vocab_size, (1, L))
+    cache = init_cache(tc, 1, 64, dtype=torch.float32, device="cpu")
+    got, st = prefill(tp, tc, torch.tensor(toks), cache, true_len=L)
+    for _ in range(3):
+        want, _ = jforward(jp, jc, jnp.asarray(toks, jnp.int32))
+        _close(got[:, -1], want[:, -1], TOL["float32"])
+        tok = np.asarray(jnp.argmax(want[:, -1], -1))[:, None]
+        toks = np.concatenate([toks, tok], 1)
+        got, st = decode_step(tp, tc, torch.tensor(tok, dtype=torch.long),
+                              st)
+    want, _ = jforward(jp, jc, jnp.asarray(toks, jnp.int32))
+    _close(got[:, -1], want[:, -1], TOL["float32"])
 
 
 def test_decode_past_capacity_leaves_cache():

@@ -7,7 +7,14 @@ inputs are numpy draws.  Tolerance 1e-5 of the reference's largest
 magnitude (at least 1): only the frameworks' f32 reduction order differs.
 Greedy tokens are held identical: at that agreement the two best logits
 of these random-weight models are far apart compared with the error.
+In bf16 (``test_bf16_matches_repro``) the tolerance is 2e-2, as for
+llama3.2-3b in tests/test_torch_model.py: the two packages round bf16 at
+different points (the scan's operands, the conv, the norms), a few bf16
+ulps of the logits; measured, 4.0e-3 (mamba2-780m) and 4.4e-3
+(zamba2-7b) at most.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -31,6 +38,7 @@ from repro_torch.serve import (ContinuousBatcher, Request, build_serve_step,
 
 ARCHS = ["mamba2-780m", "zamba2-7b"]
 TOL = 1e-5
+BF16_TOL = 2e-2
 MAX_SEQ = 96
 
 
@@ -103,6 +111,38 @@ def test_prefill_and_decode(models, T):
     assert set(g) == set(w)
     for path in w:
         _close(g[path], w[path])
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_bf16_matches_repro(arch):
+    """bf16 weights (repro's init in bf16, through the bridge): the
+    no-cache forward, an exact-length prefill and four decode steps, and
+    every cache leaf, against repro at BF16_TOL."""
+    jc = dataclasses.replace(jresolve(arch, smoke=True), dtype="bfloat16")
+    tc = dataclasses.replace(resolve(arch, smoke=True), dtype="bfloat16")
+    jp = jinit(jax.random.PRNGKey(0), jc)
+    tp = params_from_repro(jax.tree.map(np.asarray, jp), tc, device="cpu")
+    toks = np.random.default_rng(13).integers(1, tc.vocab_size, (1, 21))
+    got, _ = model_forward(tp, tc, torch.tensor(toks))
+    want, _ = jforward(jp, jc, jnp.asarray(toks, jnp.int32))
+    _close(got, want, BF16_TOL)
+    cache = init_cache(tc, 1, MAX_SEQ, dtype=torch.bfloat16, device="cpu")
+    got, st = prefill(tp, tc, torch.tensor(toks), cache, true_len=21)
+    jcache = jinit_cache(jc, 1, MAX_SEQ, dtype=jnp.bfloat16)
+    want, jst = jprefill(jp, jc, jnp.asarray(toks, jnp.int32), jcache,
+                         true_len=21)
+    _close(got, want, BF16_TOL)
+    for _ in range(4):
+        tok = np.asarray(jnp.argmax(want[:, -1], -1))[:, None]
+        got, st = decode_step(tp, tc, torch.tensor(tok, dtype=torch.long),
+                              st)
+        want, jst = jdecode(jp, jc, jnp.asarray(tok, jnp.int32), jst)
+        _close(got, want, BF16_TOL)
+    assert st.length.tolist() == np.asarray(jst.length).tolist()
+    g, w = _leaves(st.cache), _leaves(jst.cache)
+    assert set(g) == set(w)
+    for path in w:
+        _close(g[path], w[path], BF16_TOL)
 
 
 def test_batcher_matches_repro(models):

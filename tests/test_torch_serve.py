@@ -138,9 +138,14 @@ def test_eos_and_sampler_limits(models):
     ContinuousBatcher(tp, tc, slots=1, max_seq=MAX_SEQ, eos_id=eos,
                       device="cpu").run([r])
     assert r.finish_reason == "eos" and r.out == probe.out[:first + 1]
-    with pytest.raises(NotImplementedError, match="threefry"):
-        ContinuousBatcher(tp, tc, slots=1, max_seq=MAX_SEQ, device="cpu",
-                          sampler=SamplerConfig(temperature=0.7))
+    # temperature > 0 samples (tests/test_torch_sampling.py holds the
+    # tokens to repro's); the budget still ends the request
+    sampled = _clone(req)
+    ContinuousBatcher(tp, tc, slots=1, max_seq=MAX_SEQ, device="cpu",
+                      sampler=SamplerConfig(temperature=20.0)).run([sampled])
+    assert sampled.finish_reason == "length"
+    assert len(sampled.out) == req.max_new_tokens
+    assert all(0 <= t < tc.vocab_size for t in sampled.out)
     with pytest.raises(NotImplementedError, match="lane_zero3"):
         build_serve_step(tc, max_seq=MAX_SEQ, slots=2, hosting="lane_zero3",
                          device="cpu")

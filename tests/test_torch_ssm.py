@@ -172,6 +172,26 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     assert k2.launches == 0
 
 
+@pytest.mark.parametrize("which", ["x", "dt", "B", "init_state"])
+def test_cuda_wrapper_refuses_grad(which):
+    """K2 has no backward yet: under grad mode an input that requires
+    grad raises (before any device test, so it is pinned here without a
+    card), naming the training item of ROADMAP.md; under no_grad or
+    inference_mode the same call reaches the device test."""
+    x, dt, A, B, C, _ = _ssd_inputs(1, 16, 2, 16, 16, 1, seed=0,
+                                    head_major=True)
+    args = dict(zip(("x", "dt", "A", "B", "C"),
+                    map(torch.tensor, (x, dt, A, B, C))))
+    args["init_state"] = torch.zeros((1, 2, 16, 16))
+    args[which].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward.*item 6"):
+        k2.ssd_cuda(**args, chunk=8)
+    for mode in (torch.no_grad, torch.inference_mode):
+        with mode(), pytest.raises(ValueError, match="not a CUDA device"):
+            k2.ssd_cuda(**args, chunk=8)
+    assert k2.launches == 0
+
+
 def test_ops_ssd_refuses_other_devices():
     x = torch.empty((1, 2, 16, 16), device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
