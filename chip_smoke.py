@@ -66,12 +66,36 @@ and the script exits non-zero:
      after that the device time comes from CUDA events around
      20 calls queued behind a sleep kernel, and the line says so.  That
      queued time is printed beside the profiler's in every case, as
-     ``queued``.
+     ``queued``;
+  7. training, under autograd (phases 1-6 run without it):
+     (a) K1's and K2's ``torch.autograd.Function``s against autograd of
+     their plain versions, forward and every input's gradient, f32 and
+     bf16 (K1 at llama3.2-3b's T=1024 causal, whisper-large-v3's encoder
+     and its cross-attention against 1500 frames, zamba2-7b's hd 112 and
+     h2o-danube-3-4b's hd 120 with its window at T=4300; K2 at
+     mamba2-780m's T=1024 with the model's dt/A, where ``repro``'s scan
+     has NaN gradients, with and without an initial state), and the plain
+     attention backward's device time at llama3.2-3b's training shape;
+     (b) one train step of llama3.2-3b and mamba2-780m at full width cut
+     to 2 layers, f32, on the card and on the CPU from the same weights:
+     the loss, every gradient leaf and the parameters after one AdamW
+     update, each beside a negative control (the labels shifted by one
+     position) that must miss the gate;
+     (c) 20 bf16 steps of each at full width, 4 x 1024 tokens, through
+     ``launch.train.main`` on SyntheticLM (seed 0), with the launch counts
+     set to 0 just before and read just after (K1 once per layer and step,
+     K2 the same): every loss finite, the last below the first; step ms
+     (median of steps 3-20, each synchronised), tokens/s, ``train_mfu``
+     (model FLOPs over the bf16 dense peak, on a line of its own), peak
+     memory, and the last step traced: device busy, idle share, device
+     operations, the forward / backward / optimizer split, and per layer
+     the kernel's forward and its backward's device time.
 
 Both kernels choose by dtype inside their C entry point: bf16 (the
-serving paths, phases 3-6) runs on the tensor cores, f32 on the CUDA
+serving and training paths) runs on the tensor cores, f32 on the CUDA
 cores.  The line before the last is a JSON object with K1's and K2's
-numbers; the last line is ``{"ok": true, "device": {...}}``.
+numbers (launches per path, the training runs included); the last line
+is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -91,7 +115,9 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
-from repro_torch.configs import resolve  # noqa: E402
+from repro_torch import _tree  # noqa: E402
+from repro_torch.configs import RunConfig, resolve  # noqa: E402
+from repro_torch.data import make_loader  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import ssd as k2  # noqa: E402
@@ -105,6 +131,9 @@ from repro_torch.serve import (  # noqa: E402
 from repro_torch.serve import prng  # noqa: E402
 from repro_torch.serve.sampling import sample_token  # noqa: E402
 from repro_torch.serve.engine import DEFAULT_BUCKETS  # noqa: E402
+from repro_torch.launch import steps, train  # noqa: E402
+from repro_torch.launch.steps import init_train_state  # noqa: E402
+from repro_torch.optim import AdamWConfig, adamw_update  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12         # dense tensor-core peak, bf16
@@ -190,6 +219,20 @@ GUMBEL_ULPS = 4     # card against CPU, in ulps of max(|g|, 1)
 PERF_T = {"dense": (*DEFAULT_BUCKETS, 682), "audio": (64, 256, 448),
           "granite-34b": (64, 512, 792), "h2o-danube-3-4b": (64, 512, 4300)}
 TRACED_T = {"dense": 32, "audio": 448}
+# phase 7: bf16 training at full width through launch.train.main, and the
+# train step held card against CPU in f32 on CHECK_LAYERS layers.  remat
+# "none" keeps llama3.2-3b's peak under the card's 80 GB at 4 x 1024 tokens
+TRAIN_ARCHS = ("llama3.2-3b", "mamba2-780m")
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 20, 4, 1024
+TRAIN_REMAT = {"llama3.2-3b": "none", "mamba2-780m": "none"}
+CHECK_LAYERS, CHECK_T = 2, 256
+# card against CPU in f32: the loss (relative), each gradient leaf (of its
+# largest magnitude), and AdamW's step (within UPDATE_TOL x lr at all but
+# FLIP_SHARE of the elements: its normalised step passes each element's
+# relative rounding on whole, large for gradients near 0 or near its eps,
+# see tests/test_torch_train.py)
+CARD_LOSS_TOL, CARD_GRAD_TOL = 1e-5, 1e-4
+UPDATE_TOL, FLIP_SHARE = 1e-3, 1e-2
 
 
 def log(phase: str, msg: str) -> None:
@@ -1125,6 +1168,339 @@ def time_k2(name, cfg, T=512):
     return ms, plain, bound, bound_by
 
 
+# ---------------------------------------------------------------------------
+# phase 7: training
+# ---------------------------------------------------------------------------
+
+# the autograd Functions' cases: (label, config, Tq, Tk, causal, window)
+def autograd_cases():
+    llama, whisper = resolve("llama3.2-3b"), resolve("whisper-large-v3")
+    zamba, danube = resolve("zamba2-7b"), resolve("h2o-danube-3-4b")
+    return [("llama T=1024 causal", llama, 1024, 1024, True, 0),
+            (f"whisper encoder T={whisper.encoder_seq} non-causal", whisper,
+             whisper.encoder_seq, whisper.encoder_seq, False, 0),
+            (f"whisper cross Tq=448 Tk={whisper.encoder_seq}", whisper, 448,
+             whisper.encoder_seq, False, 0),
+            ("zamba2 hd112 T=512 causal", zamba, 512, 512, True, 0),
+            (f"danube hd120 T=4300 window {danube.sliding_window}", danube,
+             4300, 4300, True, danube.sliding_window)]
+
+
+def grads_err(got, want):
+    """Worst ``max|g - w| / max|w|`` over pairs of gradients (inf where a
+    gradient is not finite)."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        if not torch.isfinite(g).all():
+            return float("inf")
+        scale = float(w.float().abs().max()) or 1.0
+        worst = max(worst, float((g.float() - w.float()).abs().max())
+                    / scale)
+    return worst
+
+
+def phase_autograd() -> None:
+    """K1's and K2's autograd Functions against autograd of their plain
+    versions, forward and every input's gradient, f32 and bf16.  The
+    gradients are held to the kernels' forward tolerances (TOL, K2_TOL)
+    times the reference gradient's largest magnitude and must be finite.
+    K2 runs at mamba2-780m's shape with the model's dt/A, where ``repro``'s
+    own scan has NaN gradients."""
+    bad, seed = [], 2000
+    for label, cfg, Tq, Tk, causal, window in autograd_cases():
+        for dtype in (torch.float32, torch.bfloat16):
+            seed += 1
+            q, k, v = qkv_inputs(1, cfg.num_heads, cfg.num_kv_heads, Tq, Tk,
+                                 cfg.hd(), dtype, seed)
+            dout = torch.randn_like(q)
+            ins = [t.requires_grad_() for t in (q, k, v)]
+            out = fa.FlashAttentionFunction.apply(*ins, causal, window)
+            got = torch.autograd.grad(out, ins, dout)
+            ref_out = ref.attention_ref(*ins, causal=causal, window=window)
+            want = torch.autograd.grad(ref_out, ins, dout)
+            torch.cuda.synchronize()
+            tol = TOL[dtype]
+            e_out = rel_err(out.detach(), ref_out.detach())
+            e_grad = grads_err(got, want)
+            ok = e_out <= tol and e_grad <= tol and all(
+                g.dtype == dtype for g in got)
+            log("train", f"K1 Function {label} {str(dtype)[6:]}: forward "
+                f"{e_out:.3e}, dq/dk/dv {e_grad:.3e} of their largest "
+                f"(tol {tol:.0e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                bad.append(f"K1 {label} {dtype}")
+    cfg = resolve("mamba2-780m")
+    H, P, S = cfg.ssm_heads(), cfg.ssm_head_dim, cfg.ssm_state
+    for init in (False, True):
+        for dtype in (torch.float32, torch.bfloat16):
+            seed += 1
+            x, dt, A, B, C, s0 = ssd_inputs(1, H, 1024, P, S, dtype, seed,
+                                            model_like=True, init=init)
+            ins = [t.requires_grad_() for t in (x, dt, A, B, C)] + (
+                [s0.requires_grad_()] if init else [])
+            s_in = ins[5] if init else None
+            y, fin = k2.SSDFunction.apply(*ins[:5], s_in, cfg.ssm_chunk)
+            dy, dfin = torch.randn_like(y), torch.randn_like(fin)
+            outs, gouts = ([y, fin], [dy, dfin]) if init else ([y], [dy])
+            got = torch.autograd.grad(outs, ins, gouts)
+            ry, rfin = ref.ssd_chunked_ref(*ins[:5], chunk=cfg.ssm_chunk,
+                                           init_state=s_in)
+            want = torch.autograd.grad([ry, rfin][:len(outs)], ins, gouts)
+            torch.cuda.synchronize()
+            tol = K2_TOL[dtype]
+            e_out = max(rel_err(y.detach(), ry.detach()),
+                        rel_err(fin.detach(), rfin.detach()))
+            e_grad = grads_err(got, want)
+            ok = e_out <= tol and e_grad <= tol
+            log("train", f"K2 Function mamba2 T=1024 model dt/A"
+                f"{' init_state' if init else ''} {str(dtype)[6:]}: forward "
+                f"{e_out:.3e}, dx/ddt/dA/dB/dC{'/ds0' if init else ''} "
+                f"{e_grad:.3e} of their largest (tol {tol:.0e}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                bad.append(f"K2 init={init} {dtype}")
+    # the attention backward at llama3.2-3b's training shape (B=4, T=1024)
+    cfg = resolve("llama3.2-3b")
+    q, k, v = qkv_inputs(TRAIN_BATCH, cfg.num_heads, cfg.num_kv_heads,
+                         TRAIN_SEQ, TRAIN_SEQ, cfg.hd(), torch.bfloat16, 7)
+    out = fa.flash_attention_cuda(q, k, v)
+    dout = torch.randn_like(out)
+    dev, rows = device_us(lambda: fa.attention_backward(q, k, v, out, dout),
+                          reps=5, warmup=1)
+    how = rows[0] if len(rows) == 1 else f"{len(rows)} kernels, profiler"
+    log("perf", f"attention_backward (plain PyTorch, f32) at llama3.2-3b's "
+        f"training shape B{TRAIN_BATCH} T{TRAIN_SEQ} H{cfg.num_heads} "
+        f"K{cfg.num_kv_heads} bf16: device {dev / 1e3:.3f} ms per layer "
+        f"({how})")
+    if bad:
+        raise RuntimeError(f"the autograd Functions disagree with autograd "
+                           f"of their plain versions: {bad}")
+
+
+
+
+def _step_err(got_p, want_p, before, lr):
+    """(share of elements whose AdamW step differs by more than
+    UPDATE_TOL x lr, the largest difference over lr)."""
+    over, n, worst = 0, 0, 0.0
+    for g, w, b in zip(got_p, want_p, before):
+        d = ((g.detach().float().cpu() - b) - (w.detach().float() - b)).abs()
+        over += int((d > UPDATE_TOL * lr).sum())
+        n += d.numel()
+        worst = max(worst, float(d.max()) / lr)
+    return over / n, worst
+
+
+def phase_train_check() -> None:
+    """One train step of llama3.2-3b and mamba2-780m at full width cut to
+    CHECK_LAYERS layers, in f32, batch 1 x CHECK_T tokens, the same weights
+    and batch on the card and on the CPU: the loss, every gradient leaf
+    and the parameters after one AdamW update, each beside a negative
+    control that must miss the gate (the card's step with the labels
+    shifted by one position)."""
+    opt = AdamWConfig(warmup_steps=0, total_steps=TRAIN_STEPS)
+    for arch in TRAIN_ARCHS:
+        cfg = dataclasses.replace(resolve(arch), num_layers=CHECK_LAYERS,
+                                  dtype="float32")
+        run = RunConfig(model=cfg)
+        vg = steps._value_and_grad(steps._make_loss(run))
+        toks, labels = make_loader(cfg, CHECK_T, 1, seed=0).batch_at(0)
+        toks, labels = torch.as_tensor(toks), torch.as_tensor(labels)
+        # the weights are drawn once, on the CPU, and copied to the card
+        params0 = init_model(cfg, seed=0, device="cpu")
+        before = [t.clone() for t in _tree.leaves(params0)]
+        t0 = time.perf_counter()
+        p_cpu, s_cpu = init_train_state(params0, device="cpu")
+        l_cpu, g_cpu = vg(p_cpu, toks, labels, None)
+        adamw_update(opt, g_cpu, s_cpu, p_cpu)
+        t_cpu = time.perf_counter() - t0
+        res = {}
+        for name, lab in (("step", labels),
+                          ("control", torch.roll(labels, 1, dims=1))):
+            p, s = init_train_state(
+                _tree.unflatten(params0, before), device="cuda")
+            fa.launches = k2.launches = 0
+            loss, g = vg(p, toks.cuda(), lab.cuda(), None)
+            adamw_update(opt, g, s, p)
+            torch.cuda.synchronize()
+            res[name] = (abs(float(loss) - float(l_cpu)) / abs(float(l_cpu)),
+                         grads_err([t.cpu() for t in _tree.leaves(g)],
+                                   _tree.leaves(g_cpu)),
+                         *_step_err(_tree.leaves(p), _tree.leaves(p_cpu),
+                                    before, opt.lr))
+            if name == "step":
+                launches = (fa.launches, k2.launches)
+            del p, s, g
+            torch.cuda.empty_cache()
+        (e_l, e_g, share, worst), (c_l, c_g, c_share, _) = \
+            res["step"], res["control"]
+        log("train", f"{arch} {CHECK_LAYERS} layers at full width, f32, "
+            f"B1 T{CHECK_T}, card vs CPU (CPU step {t_cpu:.1f} s; launches "
+            f"K1/K2 {launches}): loss {e_l:.3e} (tol {CARD_LOSS_TOL:.0e}; "
+            f"labels shifted {c_l:.3e}), worst gradient leaf {e_g:.3e} of "
+            f"its largest (tol {CARD_GRAD_TOL:.0e}; shifted {c_g:.3e}), "
+            f"AdamW steps off by > {UPDATE_TOL:.0e} lr at {share:.3e} of "
+            f"the elements (tol {FLIP_SHARE:.0e}; shifted {c_share:.3e}), "
+            f"largest {worst:.3e} lr")
+        if not (e_l <= CARD_LOSS_TOL and e_g <= CARD_GRAD_TOL
+                and share <= FLIP_SHARE):
+            raise RuntimeError(f"{arch}: the card's train step disagrees "
+                               f"with the CPU's")
+        if not (c_l > CARD_LOSS_TOL and c_g > CARD_GRAD_TOL
+                and c_share > FLIP_SHARE):
+            raise RuntimeError(f"{arch}: a train step on shifted labels "
+                               f"passes the gate; the check is blind")
+
+
+class StepClock:
+    """Within ``with``: every call of the step that ``launch.train.main``
+    builds is synchronised and timed, and call ``trace_at`` (0-based) runs
+    under torch.profiler, by wrapping ``train.build_train_step``."""
+
+    def __init__(self, trace_at: int):
+        self.trace_at, self.seconds, self.prof = trace_at, [], None
+
+    def __enter__(self):
+        self.build = train.build_train_step
+
+        def build(run, opt):
+            step = self.build(run, opt)
+
+            def timed_step(*args):
+                torch.cuda.synchronize()
+                if len(self.seconds) == self.trace_at:
+                    self.prof = profile(activities=[ProfilerActivity.CPU,
+                                                    ProfilerActivity.CUDA])
+                    self.prof.__enter__()
+                t0 = time.perf_counter()
+                out = step(*args)
+                torch.cuda.synchronize()
+                self.seconds.append(time.perf_counter() - t0)
+                if len(self.seconds) == self.trace_at + 1:
+                    self.prof.__exit__(None, None, None)
+                return out
+            return timed_step
+        train.build_train_step = build
+        return self
+
+    def __exit__(self, *exc):
+        train.build_train_step = self.build
+
+
+def train_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one train step: 6 N per token (N the parameters, the
+    tied unembedding's product included) plus 3x the causal attention's
+    forward (QK^T and PV over the T(T+1)/2 pairs); the SSD scan's own
+    operations are left out."""
+    flops = 6 * cfg.param_count() * batch * seq
+    if cfg.family in ("dense", "moe", "vlm"):
+        flops += 3 * 4 * cfg.hd() * cfg.num_heads * cfg.num_layers * batch \
+            * attention_pairs(seq, seq, True, cfg.sliding_window)
+    return flops
+
+
+def phase_train(cfg, name) -> dict:
+    """TRAIN_STEPS bf16 steps of ``cfg`` at full width through
+    ``launch.train.main``, SyntheticLM seed 0, with the kernels' launch
+    counts set to 0 just before and read just after; the last step
+    traced."""
+    held = torch.cuda.memory_allocated()
+    if held > 2**30:
+        raise RuntimeError(f"{held / 2**30:.2f} GiB still held before "
+                           f"training")
+    remat = TRAIN_REMAT[cfg.name]
+    argv = ["--arch", cfg.name, "--steps", str(TRAIN_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--remat", remat]
+    log("train", f"{cfg.name}: {cfg.param_count() / 1e9:.3f} B params, "
+        f"{cfg.num_layers} layers, bf16, remat {remat}: train.main("
+        f"{argv})")
+    torch.cuda.reset_peak_memory_stats()
+    with StepClock(trace_at=TRAIN_STEPS - 1) as clock:
+        fa.launches = k2.launches = 0
+        t0 = time.perf_counter()
+        losses = train.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"flash_attention": fa.launches, "ssd": k2.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    layers = cfg.num_layers * (2 if remat == "full" else 1)
+    want = {"flash_attention": layers * TRAIN_STEPS
+            if cfg.family == "dense" else 0,
+            "ssd": layers * TRAIN_STEPS if cfg.family == "ssm" else 0}
+    if not all(np.isfinite(losses)) or len(losses) != TRAIN_STEPS:
+        raise RuntimeError(f"{cfg.name}: losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"{cfg.name}: loss did not fall: {losses}")
+    if launches != want:
+        raise RuntimeError(f"{cfg.name}: launches {launches}, want {want}")
+    ms = float(np.median(clock.seconds[2:])) * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    log("train", f"{name} | {cfg.name}: {TRAIN_STEPS} steps in {wall:.1f} s "
+        f"(init and data included); loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, every loss finite; launches {launches} (want "
+        f"{want}); step {ms:.1f} ms (median of steps 3-{TRAIN_STEPS}, "
+        f"synchronised; step {TRAIN_STEPS} traced), {tokens / ms * 1e3:.0f} "
+        f"tokens/s; peak memory {peak:.2f} GiB")
+    print(f"train_mfu {cfg.name} {flops / (ms / 1e3) / BF16_FLOP_PER_S:.4f} "
+          f"({flops:.3e} model FLOPs a step over {ms:.1f} ms at "
+          f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16 dense peak; {name})",
+          flush=True)
+    report_traced_step(cfg, name, clock)
+    return launches
+
+
+ANNOTATIONS = ("train_step/forward", "train_step/backward",
+               "train_step/optimizer", "attention_backward", "ssd_backward")
+
+
+def report_traced_step(cfg, name, clock) -> None:
+    """The traced step: wall, device busy, idle share, device operations,
+    the device time of the forward, the optimizer and the rest (the
+    backward, whose operations run on autograd's own thread, outside the
+    ``train_step/backward`` range), and per layer K1's or K2's forward and
+    its backward's device time."""
+    avg = clock.prof.key_averages()
+    kernels = [r for r in avg
+               if r.device_type == torch.autograd.DeviceType.CUDA
+               and r.self_device_time_total > 0 and r.key not in ANNOTATIONS]
+    wall = clock.seconds[clock.trace_at] * 1e3
+    if not kernels:
+        log("train", f"{name} | {cfg.name} traced step: not measured, the "
+            f"profiler recorded no device kernel")
+        return
+    busy = sum(r.self_device_time_total for r in kernels) / 1e3
+    ops = sum(r.count for r in kernels)
+    cpu = {r.key: r for r in avg
+           if r.device_type == torch.autograd.DeviceType.CPU
+           and r.key in ANNOTATIONS}
+    dev = lambda k: cpu[k].device_time_total / 1e3 if k in cpu else 0.0
+    host = lambda k: cpu[k].cpu_time_total / 1e3 if k in cpu else 0.0
+    fwd, opt = dev("train_step/forward"), dev("train_step/optimizer")
+    top = sorted(kernels, key=lambda r: -r.self_device_time_total)[:5]
+    log("train", f"{name} | {cfg.name} traced step: wall {wall:.1f} ms, "
+        f"device busy {busy:.1f} ms (idle {1 - busy / wall:.1%}), {ops} "
+        f"device operations; device ms: forward {fwd:.1f}, backward "
+        f"{busy - fwd - opt:.1f} (busy less the other two), optimizer "
+        f"{opt:.1f}; host ms (traced): forward "
+        f"{host('train_step/forward'):.1f}, backward "
+        f"{host('train_step/backward'):.1f}, optimizer "
+        f"{host('train_step/optimizer'):.1f}; most device time (ms): "
+        + "; ".join(f"{r.key[:40]} {r.self_device_time_total / 1e3:.2f}"
+                    for r in top))
+    mark, bwd = ("flash_attention", "attention_backward") \
+        if cfg.family == "dense" else ("ssd_", "ssd_backward")
+    rows = [r for r in kernels if mark in r.key and "_kernel" in r.key]
+    per = lambda us: f"{us / 1e3 / cfg.num_layers:.3f}"
+    log("train", f"{name} | {cfg.name} traced step, per layer: "
+        f"{'K1' if cfg.family == 'dense' else 'K2'} forward device "
+        f"{per(sum(r.self_device_time_total for r in rows))} ms "
+        f"({sum(r.count for r in rows)} kernel launches in the step), its "
+        f"backward ({bwd}, plain PyTorch f32) "
+        + (f"{per(cpu[bwd].device_time_total)} ms" if bwd in cpu
+           and cpu[bwd].device_time_total else "not measured"))
+
+
 def timed(label, fn, *args, **kw):
     t0 = time.perf_counter()
     out = fn(*args, **kw)
@@ -1132,7 +1508,7 @@ def timed(label, fn, *args, **kw):
     return out
 
 
-@torch.no_grad()          # the kernels have no backward; nothing here trains
+@torch.no_grad()          # serving needs no autograd; phase 7 turns it on
 def main() -> int:
     t_start = time.perf_counter()
     name = timed("device", phase_device)
@@ -1172,6 +1548,13 @@ def main() -> int:
                       window=cfg.sliding_window)
         del batcher, reqs
         torch.cuda.empty_cache()
+    with torch.enable_grad():
+        timed("autograd Functions", phase_autograd)
+        timed("train step, card vs CPU", phase_train_check)
+        for arch in TRAIN_ARCHS:
+            launches[f"train {arch}"] = timed(f"train {arch}", phase_train,
+                                              resolve(arch), name)
+            torch.cuda.empty_cache()
     log("time", f"total: {time.perf_counter() - t_start:.1f} s")
     by_path = {k: {a: n[k] for a, n in launches.items()}
                for k in ("flash_attention", "ssd")}

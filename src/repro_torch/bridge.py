@@ -1,4 +1,4 @@
-"""``repro`` parameters → the port's parameters.
+"""``repro`` parameters → the port's parameters, and back.
 
 ``repro.models.init_model`` returns a tree whose per-layer weights are
 stacked along a leading L axis under ``"blocks"`` (and, for audio, under
@@ -12,6 +12,9 @@ Leaves outside a ``"blocks"`` stack (the hybrid's one ``shared_attn``
 block, ``vis_proj``, the encoder's ``pos`` and ``final_norm``) are not
 stacked and map leaf to leaf.  It raises if any ``repro`` leaf is left
 unconsumed, if any port parameter is left unset, or if a shape disagrees.
+``params_to_repro`` is its inverse: any tree of the port's layout
+(parameters, gradients, AdamW moments) as ``repro``'s stacked tree of
+numpy arrays, for comparing the two packages leaf by leaf.
 """
 from __future__ import annotations
 
@@ -78,3 +81,36 @@ def params_from_repro(tree: dict, cfg: ModelConfig, *,
     if left:
         raise ValueError(f"repro leaves not consumed by the port: {left}")
     return params
+
+
+def params_to_repro(params: dict, cfg: ModelConfig) -> dict:
+    """A tree of the port's layout (its parameters, or gradients or AdamW
+    moments that mirror them) in ``repro``'s layout: each list of layers
+    stacked leaf by leaf along a new leading L axis.  Leaves become numpy
+    arrays, floats as float32.  Raises if a stack's length disagrees with
+    the config."""
+    def leaf(t):         # a copy: training updates the parameters in place
+        t = t.detach().cpu()
+        return (t.float() if t.is_floating_point() else t).numpy().copy()
+
+    def convert(node, path):
+        if isinstance(node, dict):
+            return {k: convert(v, path + (k,)) for k, v in node.items()}
+        if isinstance(node, list):
+            n = cfg.encoder_layers if path == ("encoder", "blocks") \
+                else cfg.num_layers
+            if len(node) != n:
+                raise ValueError(f"{'/'.join(path)} holds {len(node)} "
+                                 f"layers, config has {n}")
+            layers = [convert(v, path) for v in node]
+            return _stack(layers)
+        return leaf(node)
+
+    return convert(params, ())
+
+
+def _stack(layers: list):
+    """Per-layer trees of numpy leaves → one tree of stacked leaves."""
+    if isinstance(layers[0], dict):
+        return {k: _stack([lp[k] for lp in layers]) for k in layers[0]}
+    return np.stack(layers)

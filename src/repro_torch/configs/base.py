@@ -4,9 +4,9 @@ The port's own copy of ``repro.configs.base`` (``ModelConfig``,
 ``ShapeConfig``, ``SHAPES`` and ``register``/``resolve``/``all_archs``),
 kept field for field so both packages resolve the same numbers.  Every
 arch module registers a ``ModelConfig`` with the published numbers plus a
-reduced ``smoke()`` variant of the same family.  ``RunConfig`` is not
-here: it holds the training driver's communication knobs, which come with
-the training slice.
+reduced ``smoke()`` variant of the same family.  ``RunConfig`` holds only
+the training knobs the port honours so far (``repro``'s has also the
+communication, ZeRO and parallelism knobs, ROADMAP.md Queue 1 items 7-10).
 """
 from __future__ import annotations
 
@@ -134,6 +134,42 @@ SHAPES = {
     "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """One training run: the fields of ``repro``'s ``RunConfig`` that the
+    port honours, validated at construction as ``repro`` validates them.
+
+    ``remat``: ``"none"`` | ``"full"`` | ``"dots"`` (the last raises in the
+    forward: not ported).  ``gradsync``: ``"native"`` only; on one process
+    the gradient sync is the identity, and the lane strategies come with
+    ROADMAP.md Queue 1 items 7-8.  ``microbatch``: gradient-accumulation
+    microbatches per step (0 = off).  ``accum_dtype``: their accumulator,
+    ``"float32"`` or ``"bfloat16"``."""
+    model: ModelConfig
+    remat: str = "none"
+    gradsync: str = "native"
+    microbatch: int = 0
+    accum_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.accum_dtype not in ("float32", "bfloat16"):
+            raise ValueError(
+                f"accum_dtype must be 'float32' or 'bfloat16', got "
+                f"{self.accum_dtype!r}")
+        if self.remat not in ("none", "full", "dots"):
+            raise ValueError(f"unknown remat policy {self.remat!r}; have "
+                             f"'none', 'full', 'dots'")
+        if self.microbatch < 0:
+            raise ValueError(f"microbatch must be >= 0, got "
+                             f"{self.microbatch}")
+        if self.gradsync != "native":
+            raise NotImplementedError(
+                f"gradsync={self.gradsync!r} is not ported: the port trains "
+                f"on one process, where only 'native' (the identity) "
+                f"applies; the node/lane collectives and the gradient sync "
+                f"are ROADMAP.md, Queue 1, items 7-8")
 
 
 # ---------------------------------------------------------------------------

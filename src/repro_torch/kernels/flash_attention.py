@@ -9,10 +9,15 @@ chooses the kernel by dtype: bfloat16 (every serving path) runs on the
 tensor cores, float32 on the CUDA cores.  One call is one launch.
 
 ``flash_attention_cuda`` takes CUDA tensors only, and refuses an input
-that requires grad while grad mode is on: the kernel has no backward yet,
-and a loss through it would get no gradient.  The plain version is
-``kernels.ref.attention_ref`` and ``kernels.ops.flash_attention`` chooses
-between them by the tensors' device.  ``launches`` counts the launches.
+that requires grad while grad mode is on: it writes through raw pointers,
+so a loss through it alone would get no gradient.
+``FlashAttentionFunction`` is K1 inside autograd: its forward is
+``flash_attention_cuda`` and its backward ``attention_backward``, plain
+PyTorch in f32, the counterpart of what ``repro`` trains through (the AD
+of its lax attention; ``repro`` has no backward kernel).  The plain
+version of K1 is ``kernels.ref.attention_ref``, and
+``kernels.ops.flash_attention`` chooses between it and the Function by the
+tensors' device.  ``launches`` counts the kernel's launches.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import math
 
 import torch
 
+from . import ref
 from ._build import Library
 
 LIBRARY = Library("flash_attention", {"repro_flash_attention_fwd": (
@@ -41,10 +47,11 @@ def build() -> ctypes.CDLL:
 def _check(q, k, v):
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError(
-            "flash_attention_cuda: an input requires grad, and K1 has no "
-            "backward yet (it comes with training, ROADMAP.md, Queue 1, "
-            "item 6); call it under torch.no_grad() or "
-            "torch.inference_mode()")
+            "flash_attention_cuda: an input requires grad, and this raw "
+            "wrapper has no backward; FlashAttentionFunction.apply (which "
+            "kernels.ops.flash_attention calls) gives K1 its backward "
+            "(ROADMAP.md, Queue 1, item 6), or call it under "
+            "torch.no_grad() or torch.inference_mode()")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError(f"flash_attention_cuda: {name} is on "
@@ -106,3 +113,60 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
     LIBRARY.check(err, "flash_attention")
     launches += 1
     return out
+
+
+def attention_backward(q, k, v, out, dout, *, causal: bool = True,
+                       window: int = 0):
+    """Gradients of ``kernels.ref.attention_ref`` at (q, k, v): ``(dq, dk,
+    dv)``, each in its input's dtype, given the forward's output ``out``
+    and its gradient ``dout`` (B,H,Tq,hd).  In f32: the masked
+    probabilities P are recomputed, then ``dV = P^T dO``, ``dP = dO V^T``,
+    ``dS = P o (dP - rowsum(dO o O))``, ``dQ = scale dS K`` and ``dK =
+    scale dS^T Q``, with the G query heads of each K/V head summed into
+    its dK and dV.  It holds B·H·Tq·Tk f32 scores a few times over
+    (llama3.2-3b at B=4, T=1024: 0.4 GB each), one layer at a time."""
+    B, H, Tq, hd = q.shape
+    K, Tk = k.shape[1], k.shape[2]
+    G = H // K
+    scale = 1.0 / math.sqrt(hd)
+    qf = q.float().reshape(B, K, G, Tq, hd)        # head h = K/V head h // G
+    kf, vf = k.float(), v.float()
+    mask = ref.attention_mask(Tq, Tk, causal=causal, window=window,
+                              device=q.device)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qf / math.sqrt(hd), kf)
+    p = torch.softmax(s.masked_fill(~mask, ref.NEG_INF), dim=-1)
+    del s
+    do = dout.float().reshape(B, K, G, Tq, hd)
+    delta = (do * out.float().reshape(B, K, G, Tq, hd)).sum(-1, keepdim=True)
+    dv = torch.einsum("bkgqs,bkgqd->bksd", p, do)
+    ds = p * (torch.einsum("bkgqd,bksd->bkgqs", do, vf) - delta)
+    del p
+    ds = ds.masked_fill(~mask, 0.0)     # a row with no key: no gradient
+    dq = torch.einsum("bkgqs,bksd->bkgqd", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qf) * scale
+    return (dq.reshape(B, H, Tq, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """K1 inside autograd.  ``apply(q, k, v, causal, window)`` with the
+    arguments of ``flash_attention_cuda``: the forward launches K1 (one
+    count), the backward is ``attention_backward`` on the saved q, k, v
+    and output.  Under ``torch.utils.checkpoint`` the forward runs again
+    in the backward, and launches K1 again."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out = flash_attention_cuda(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        with torch.profiler.record_function("attention_backward"):
+            dq, dk, dv = attention_backward(q, k, v, out, dout,
+                                            causal=ctx.causal,
+                                            window=ctx.window)
+        return dq, dk, dv, None, None

@@ -1,17 +1,19 @@
 """Dispatch by device: the kernel for CUDA tensors, the plain version on CPU.
 
 Counterpart of ``repro.kernels.ops``.  There is no switch: a CPU tensor
-goes to the plain PyTorch version (``kernels.ref``), a CUDA tensor goes
-to the hand-written kernel, and the kernel's wrapper raises if it cannot
-run.  Any other device raises.  On the card each kernel's C entry point
+goes to the plain PyTorch version (``kernels.ref``), whose autograd the
+CPU tests train through; a CUDA tensor goes to the hand-written kernel
+inside its ``torch.autograd.Function`` (the kernel forward, a plain f32
+backward), with grad on or off, and the kernel's wrapper raises if it
+cannot run.  Any other device raises.  On the card each kernel's C entry point
 chooses by dtype: bfloat16, the serving paths' dtype, runs on the tensor
 cores, float32 on the CUDA cores; neither falls back on the other.
 """
 from __future__ import annotations
 
 from . import ref
-from .flash_attention import flash_attention_cuda
-from .ssd import ssd_cuda
+from .flash_attention import FlashAttentionFunction
+from .ssd import SSDFunction
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
@@ -19,7 +21,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type == "cuda":
-        return flash_attention_cuda(q, k, v, causal=causal, window=window)
+        return FlashAttentionFunction.apply(q, k, v, causal, window)
     raise ValueError(f"flash_attention: no kernel for device {q.device}")
 
 
@@ -30,5 +32,5 @@ def ssd(x, dt, A, B, C, *, chunk: int, init_state=None):
         return ref.ssd_chunked_ref(x, dt, A, B, C, chunk=chunk,
                                    init_state=init_state)
     if x.device.type == "cuda":
-        return ssd_cuda(x, dt, A, B, C, chunk=chunk, init_state=init_state)
+        return SSDFunction.apply(x, dt, A, B, C, init_state, chunk)
     raise ValueError(f"ssd: no kernel for device {x.device}")

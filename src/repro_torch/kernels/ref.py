@@ -4,7 +4,8 @@ Counterpart of ``repro.kernels.ref``, plus the port of ``repro``'s lax
 SSD scan (``repro.models.ssm.ssd_chunked``):
 
 * ``attention_ref``   — the plain version of K1
-                        (``kernels/flash_attention.py``);
+                        (``kernels/flash_attention.py``), with its mask
+                        ``attention_mask``;
 * ``ssd_chunked``     — the chunked SSD scan in ``repro``'s model layout,
                         re-exported by ``models.ssm``;
 * ``ssd_chunked_ref`` — the same in K2's head-major layout: the plain
@@ -25,6 +26,20 @@ import torch.nn.functional as F
 NEG_INF = -1e30
 
 
+def attention_mask(Tq: int, Tk: int, *, causal: bool, window: int,
+                   device) -> torch.Tensor:
+    """(Tq, Tk) bool, True where query position q may see key position k:
+    ``q >= k`` if causal, ``k >= q - window`` if a window is set."""
+    qpos = torch.arange(Tq, device=device)[:, None]
+    kpos = torch.arange(Tk, device=device)[None, :]
+    mask = torch.ones((Tq, Tk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= qpos >= kpos
+    if window:
+        mask &= kpos >= qpos - window
+    return mask
+
+
 def attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     """Naive softmax attention.  q: (B,H,Tq,hd); k,v: (B,K,Tk,hd)."""
     B, H, Tq, hd = q.shape
@@ -33,13 +48,8 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     kf = k.repeat_interleave(G, dim=1).float()
     vf = v.repeat_interleave(G, dim=1).float()
     s = torch.einsum("bhqd,bhkd->bhqk", q.float() / math.sqrt(hd), kf)
-    qpos = torch.arange(Tq, device=q.device)[:, None]
-    kpos = torch.arange(Tk, device=q.device)[None, :]
-    mask = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= qpos >= kpos
-    if window:
-        mask &= kpos >= qpos - window
+    mask = attention_mask(Tq, Tk, causal=causal, window=window,
+                          device=q.device)
     s = s.masked_fill(~mask, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqk,bhkd->bhqd", p, vf)
@@ -51,11 +61,14 @@ def ssd_ref(x, dt, A, B, C):
 
     x: (b,H,T,P); dt: (b,H,T); A: (H,); B,C: (b,T,S).  Returns (b,H,T,P).
     state_t = e^{dt_t A} state_{t-1} + dt_t x_t (x) B_t;  y_t = C_t . state_t
+    Computed in f32, or in f64 for f64 inputs (the tests' oracle of the
+    scan's gradient).
     """
     b, H, T, P = x.shape
     S = B.shape[-1]
-    xf, dtf, Bf, Cf = x.float(), dt.float(), B.float(), C.float()
-    state = torch.zeros((b, H, P, S), dtype=torch.float32, device=x.device)
+    acc = torch.promote_types(x.dtype, torch.float32)   # f32, or f64
+    xf, dtf, Bf, Cf = (t.to(acc) for t in (x, dt, B, C))
+    state = torch.zeros((b, H, P, S), dtype=acc, device=x.device)
     ys = []
     for t in range(T):
         decay = torch.exp(dtf[:, :, t] * A[None, :])
@@ -97,11 +110,15 @@ def ssd_chunked(x, dt, A, B, C, *, chunk: int, init_state=None):
     cum = torch.cumsum(da, dim=2)                      # within-chunk
     seg_end = cum[:, :, -1, :]                         # (b,nc,H)
 
-    # intra-chunk: L[q1,q2] = exp(cum[q1] - cum[q2]) for q1 >= q2
+    # intra-chunk: L[q1,q2] = exp(cum[q1] - cum[q2]) for q1 >= q2, else 0.
+    # Masked before the exponential: above the diagonal diff > 0, and
+    # exp(diff) overflows once dt|A|(Q-1) passes ~88.7; selecting 0 after
+    # it keeps the value but makes the gradient 0 * inf = NaN (repro's
+    # ssd_chunked does that).  exp(-inf) = 0 gives both right.
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # (b,nc,Q,Q,H)
     causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
-    Lmat = torch.where(causal[None, None, :, :, None], torch.exp(diff),
-                       torch.zeros((), device=x.device))
+    Lmat = torch.exp(diff.masked_fill(~causal[None, None, :, :, None],
+                                      float("-inf")))
     scores = torch.einsum("bcqhs,bckhs->bcqkh", Cc, Bc) * Lmat
     y_intra = torch.einsum("bcqkh,bckh,bckhp->bcqhp", scores, dtc, xc)
 

@@ -13,9 +13,14 @@ recurrence between them), float32 the CUDA-core kernel.  One call is one
 launch of K2.
 
 ``ssd_cuda`` takes CUDA tensors only, and refuses an input that requires
-grad while grad mode is on (no backward yet).  The plain version is
-``kernels.ref.ssd_chunked_ref`` and ``kernels.ops.ssd`` chooses between
-them by the tensors' device.  ``launches`` counts the launches.
+grad while grad mode is on (it writes through raw pointers, so a loss
+through it alone would get no gradient).  ``SSDFunction`` is K2 inside
+autograd: its forward is ``ssd_cuda``, its backward ``ssd_backward``, the
+autograd of the plain chunked scan recomputed in f32 (``repro`` trains
+through the AD of its lax ``ssd_chunked``; it has no backward kernel).
+The plain version of K2 is ``kernels.ref.ssd_chunked_ref``, and
+``kernels.ops.ssd`` chooses between it and the Function by the tensors'
+device.  ``launches`` counts the kernel's launches.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import ctypes
 
 import torch
 
+from . import ref
 from ._build import Library
 
 LIBRARY = Library("ssd", {"repro_ssd_fwd": (
@@ -67,8 +73,9 @@ def _check(x, dt, A, B, C, init_state, chunk):
         named.append(("init_state", init_state))
     if torch.is_grad_enabled() and any(t.requires_grad for _, t in named):
         raise RuntimeError(
-            "ssd_cuda: an input requires grad, and K2 has no backward yet "
-            "(it comes with training, ROADMAP.md, Queue 1, item 6); call "
+            "ssd_cuda: an input requires grad, and this raw wrapper has no "
+            "backward; SSDFunction.apply (which kernels.ops.ssd calls) "
+            "gives K2 its backward (ROADMAP.md, Queue 1, item 6), or call "
             "it under torch.no_grad() or torch.inference_mode()")
     for name, t in named:
         if t.device.type != "cuda":
@@ -161,3 +168,60 @@ def ssd_cuda(x, dt, A, B, C, *, chunk: int = 64, init_state=None):
     LIBRARY.check(err, "ssd")
     launches += 1
     return y, final
+
+
+def ssd_backward(x, dt, A, B, C, init_state, dy, dfinal, *, chunk: int,
+                 needs=(True,) * 6):
+    """Gradients of ``kernels.ref.ssd_chunked_ref`` at (x, dt, A, B, C,
+    init_state), given the gradients ``dy`` of y and ``dfinal`` of the
+    final state (either may be None: no gradient flows from it).  The
+    chunked scan is recomputed in f32 under autograd, its intra-chunk decay
+    masked before the exponential, so the gradient stays finite where
+    ``repro``'s goes NaN (``kernels/ref.py``).  ``needs`` flags the inputs
+    whose gradient is wanted; the others, and a None ``init_state``, get
+    None.  Each gradient comes back in its input's dtype."""
+    inputs = (x, dt, A, B, C, init_state)
+    with torch.enable_grad():
+        f32 = [None if t is None else t.detach().float().requires_grad_(
+            bool(n)) for t, n in zip(inputs, needs)]
+        y, final = ref.ssd_chunked_ref(*f32[:5], chunk=chunk,
+                                       init_state=f32[5])
+        outs = [(o, g.float()) for o, g in ((y, dy), (final, dfinal))
+                if g is not None]
+        wrt = [t for t in f32 if t is not None and t.requires_grad]
+        got = torch.autograd.grad(
+            [o for o, _ in outs], wrt, [g for _, g in outs],
+            allow_unused=True) if outs and wrt else [None] * len(wrt)
+    got, grads = iter(got), []
+    for t, src in zip(f32, inputs):
+        if t is None or not t.requires_grad:
+            grads.append(None)
+            continue
+        g = next(got)
+        grads.append(torch.zeros_like(src) if g is None else g.to(src.dtype))
+    return tuple(grads)
+
+
+class SSDFunction(torch.autograd.Function):
+    """K2 inside autograd.  ``apply(x, dt, A, B, C, init_state, chunk)``
+    with the arguments of ``ssd_cuda``: the forward launches K2 (one
+    count) and returns ``(y, final_state)``, the backward is
+    ``ssd_backward`` on the saved inputs.  A training step ignores the
+    final state, whose gradient then arrives as None."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, init_state, chunk):
+        y, final = ssd_cuda(x, dt, A, B, C, chunk=chunk,
+                            init_state=init_state)
+        ctx.save_for_backward(x, dt, A, B, C, init_state)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, final
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        with torch.profiler.record_function("ssd_backward"):
+            grads = ssd_backward(*ctx.saved_tensors, dy, dfinal,
+                                 chunk=ctx.chunk,
+                                 needs=ctx.needs_input_grad[:6])
+        return (*grads, None)

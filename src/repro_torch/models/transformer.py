@@ -1,4 +1,4 @@
-"""Model assembly and serving forwards for every family of the zoo.
+"""Model assembly, the training loss and serving forwards for every family.
 
 Counterpart of ``repro.models.transformer``:
 
@@ -21,7 +21,10 @@ S, K, hd); ssm the Mamba2 state ``{"conv_x", "conv_B", "conv_C", "ssm"}``
 with a leading L; hybrid ``{"mamba": <the ssm cache>, "attn": {"k", "v"}
 with one entry per group}``.  The serving forwards write them in place.
 Audio serving also carries every decoder layer's cross K/V of the encoder
-output (``ServeState.enc_kv``), computed once at prefill.
+output (``ServeState.enc_kv``), computed once at prefill.  Training goes
+through ``loss_fn`` over the no-cache forward, with ``remat="full"``
+recomputing each layer in the backward (``torch.utils.checkpoint``) where
+``repro`` wraps its scan body in ``jax.checkpoint``.
 
 One departure in bf16: ``repro`` adds the f32 frame embeddings to its
 encoder's input, so by JAX's type promotion its encoder runs in f32 under
@@ -32,9 +35,11 @@ the same computation.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -203,17 +208,43 @@ def _shared_attn_group(cfg: ModelConfig, i: int):
 # no-cache forward (the consistency checks' reference for the cached path)
 # ---------------------------------------------------------------------------
 
-def _encoder_forward(params, cfg: ModelConfig, frames):
+def _layer_runner(remat: str):
+    """``run(fn, *args)`` that calls one layer: directly (``"none"``), or
+    under ``torch.utils.checkpoint`` (``"full"``: the layer keeps only its
+    inputs and runs again in the backward; the counterpart of
+    ``repro``'s ``_maybe_remat``).  The forward draws no random numbers,
+    so no RNG state is kept for the recompute."""
+    if remat == "none":
+        return lambda fn, *args: fn(*args)
+    if remat == "full":
+        return lambda fn, *args: checkpoint(fn, *args, use_reentrant=False,
+                                            preserve_rng_state=False)
+    if remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (save the matmul outputs, recompute the rest) is "
+            "not ported yet: ROADMAP.md, Queue 1, item 6 (c); use 'none' or "
+            "'full'")
+    raise ValueError(f"unknown remat policy {remat!r}; have 'none', "
+                     f"'full', 'dots'")
+
+
+def _encoder_layer(lp, h, cfg: ModelConfig, positions):
+    h = _attn_noncache(lp, h, cfg, causal=False, positions=positions,
+                       window=0)
+    return _ffn(lp, h, cfg)[0]
+
+
+def _encoder_forward(params, cfg: ModelConfig, frames, remat: str = "none"):
     """Whisper encoder over frame embeddings (B, Te, d): learned positions
     and rotary, bidirectional attention (through K1 on the card)."""
+    run = _layer_runner(remat)
     enc = params["encoder"]
     Te = frames.shape[1]
     h = (frames.float() + enc["pos"][:Te].float()).to(enc["pos"].dtype)
     positions = torch.arange(Te, device=h.device)[None]
+    layer = functools.partial(_encoder_layer, cfg=cfg, positions=positions)
     for lp in enc["blocks"]:
-        h = _attn_noncache(lp, h, cfg, causal=False, positions=positions,
-                           window=0)
-        h, _ = _ffn(lp, h, cfg)
+        h = run(layer, lp, h)
     return _norm(cfg, enc["final_norm"], h)
 
 
@@ -230,37 +261,76 @@ def _embed_inputs(params, cfg: ModelConfig, tokens, extra_embeds):
     return h
 
 
-def _encode(params, cfg: ModelConfig, tokens, extra_embeds):
+def _encode(params, cfg: ModelConfig, tokens, extra_embeds,
+            remat: str = "none"):
     """(decoder input h, encoder output or None) for every family."""
     if cfg.family != "audio":
         return _embed_inputs(params, cfg, tokens, extra_embeds), None
     if extra_embeds is None:
         raise ValueError("audio needs frame embeddings")
     return (L.embed(params["embed"], tokens),
-            _encoder_forward(params, cfg, extra_embeds))
+            _encoder_forward(params, cfg, extra_embeds, remat))
 
 
-def model_forward(params, cfg: ModelConfig, tokens, *, extra_embeds=None):
+def model_forward(params, cfg: ModelConfig, tokens, *, extra_embeds=None,
+                  remat: str = "none"):
     """Full forward to logits.  tokens: (B, T) int; ``extra_embeds``: the
     vlm patches (B, vision_tokens, d) or the audio frames (B, Te, d).
+    ``remat``: ``"none"``, or ``"full"`` to recompute every layer (each
+    Mamba2 layer, each use of the hybrid's shared block, each encoder
+    layer) in the backward; ``"dots"`` is not ported.
     Returns ``(logits (B, T_total, V), aux_loss)``: T_total counts the vlm
     prefix, and the aux loss (moe only, else 0) is summed over layers."""
-    h, enc_out = _encode(params, cfg, tokens, extra_embeds)
+    run = _layer_runner(remat)
+    h, enc_out = _encode(params, cfg, tokens, extra_embeds, remat)
     positions = torch.arange(h.shape[1], device=h.device)[None]
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
+    block = functools.partial(_dense_block, cfg=cfg, positions=positions)
     if cfg.family in _SCANNED_FAMILIES:
+        block = functools.partial(block, enc_out=enc_out)
         for lp in params["blocks"]:
-            h, aux = _dense_block(lp, h, cfg, positions=positions,
-                                  enc_out=enc_out)
+            h, aux = run(block, lp, h)
             aux_total = aux_total + aux
     else:
+        mamba = functools.partial(_mamba_block, cfg=cfg)
         for i, lp in enumerate(params["blocks"]):
             if _shared_attn_group(cfg, i) is not None:
-                h, _ = _dense_block(params["shared_attn"], h, cfg,
-                                    positions=positions)
-            h, _ = _mamba_block(lp, h, cfg)
+                h, _ = run(block, params["shared_attn"], h)
+            h, _ = run(mamba, lp, h)
     h = _norm(cfg, params["final_norm"], h)
     return L.unembed(params["embed"], h), aux_total
+
+
+# ---------------------------------------------------------------------------
+# training loss
+# ---------------------------------------------------------------------------
+
+def loss_fn(params, cfg: ModelConfig, tokens, labels, *, extra_embeds=None,
+            remat: str = "none", aux_weight: float = 0.01):
+    """Next-token cross-entropy in f32, mean over the labels >= 0 (-100
+    masks a position), plus ``aux_weight`` times the moe aux loss.  The vlm
+    prefix's logits are cut off: the loss is over the text positions.
+    ``repro`` picks the gold logit by a one-hot sum over the vocabulary,
+    for its sharding; a gather reads the same single value."""
+    logits, aux = model_forward(params, cfg, tokens,
+                                extra_embeds=extra_embeds, remat=remat)
+    if logits.shape[1] != labels.shape[1]:
+        logits = logits[:, logits.shape[1] - labels.shape[1]:]
+    logits = logits.float()
+    mask = (labels >= 0).float()
+    gold = logits.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+    ce = (torch.logsumexp(logits, dim=-1) - gold) * mask
+    loss = ce.sum() / mask.sum().clamp_min(1.0)
+    return loss + aux_weight * aux
+
+
+def make_train_step(cfg: ModelConfig, *, remat: str = "none"):
+    """``step(params, tokens, labels, extra_embeds=None) -> loss``, as
+    ``repro``'s step factory; the launch layer differentiates it."""
+    def step(params, tokens, labels, extra_embeds=None):
+        return loss_fn(params, cfg, tokens, labels,
+                       extra_embeds=extra_embeds, remat=remat)
+    return step
 
 
 # ---------------------------------------------------------------------------

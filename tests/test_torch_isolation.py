@@ -60,6 +60,8 @@ def test_default_device_is_cuda_and_never_falls_back():
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card; the check is for CPU hosts")
     from repro_torch.configs import resolve
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import init_train_state
     from repro_torch.models import init_cache, init_model
     from repro_torch.serve import ContinuousBatcher
     for arch in ("llama3.2-3b", "mamba2-780m", "granite-moe-3b-a800m",
@@ -72,3 +74,7 @@ def test_default_device_is_cuda_and_never_falls_back():
             init_model(cfg)
         with pytest.raises(RuntimeError, match="cuda"):
             init_cache(cfg, 1, 64)
+        with pytest.raises(RuntimeError, match="cuda"):
+            init_train_state(params)
+        with pytest.raises(RuntimeError, match="cuda"):
+            train.main(["--arch", arch, "--smoke", "--steps", "1"])

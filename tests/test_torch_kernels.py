@@ -95,13 +95,15 @@ def test_cuda_wrapper_refuses_cpu_tensors():
 
 @pytest.mark.parametrize("which", [0, 1, 2])
 def test_cuda_wrapper_refuses_grad(which):
-    """K1 has no backward yet: under grad mode an input that requires
-    grad raises (before any device test, so it is pinned here without a
-    card), naming the training item of ROADMAP.md; under no_grad or
-    inference_mode the same call reaches the device test."""
+    """The raw wrapper has no backward: under grad mode an input that
+    requires grad raises (before any device test, so it is pinned here
+    without a card), naming the autograd Function that carries K1's
+    backward; under no_grad or inference_mode the same call reaches the
+    device test."""
     _, qkv = _inputs(1, 2, 2, 16, 16, 32, "f32")
     qkv[which].requires_grad_(True)
-    with pytest.raises(RuntimeError, match="no backward.*item 6"):
+    with pytest.raises(RuntimeError,
+                       match="no backward.*FlashAttentionFunction.*item 6"):
         fa.flash_attention_cuda(*qkv)
     for mode in (torch.no_grad, torch.inference_mode):
         with mode(), pytest.raises(ValueError, match="not a CUDA device"):

@@ -174,17 +174,18 @@ def test_cuda_wrapper_refuses_cpu_tensors():
 
 @pytest.mark.parametrize("which", ["x", "dt", "B", "init_state"])
 def test_cuda_wrapper_refuses_grad(which):
-    """K2 has no backward yet: under grad mode an input that requires
-    grad raises (before any device test, so it is pinned here without a
-    card), naming the training item of ROADMAP.md; under no_grad or
-    inference_mode the same call reaches the device test."""
+    """The raw wrapper has no backward: under grad mode an input that
+    requires grad raises (before any device test, so it is pinned here
+    without a card), naming the autograd Function that carries K2's
+    backward; under no_grad or inference_mode the same call reaches the
+    device test."""
     x, dt, A, B, C, _ = _ssd_inputs(1, 16, 2, 16, 16, 1, seed=0,
                                     head_major=True)
     args = dict(zip(("x", "dt", "A", "B", "C"),
                     map(torch.tensor, (x, dt, A, B, C))))
     args["init_state"] = torch.zeros((1, 2, 16, 16))
     args[which].requires_grad_(True)
-    with pytest.raises(RuntimeError, match="no backward.*item 6"):
+    with pytest.raises(RuntimeError, match="no backward.*SSDFunction.*item 6"):
         k2.ssd_cuda(**args, chunk=8)
     for mode in (torch.no_grad, torch.inference_mode):
         with mode(), pytest.raises(ValueError, match="not a CUDA device"):

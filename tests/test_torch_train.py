@@ -1,0 +1,392 @@
+"""The port's training path against ``repro``'s, on the CPU at smoke size.
+
+``loss_fn`` and its gradient for every family, the replicated train step
+(one and three AdamW steps), microbatched accumulation, remat, and the
+single-process training loop ``repro_torch.launch.train``.  Both packages start
+from ``repro.models.init_model``'s weights through ``repro_torch.bridge``;
+tokens, labels (with -100) and extras are numpy draws from a seed.  On the
+CPU the kernels' plain versions run, and the port differentiates them with
+autograd; ``repro`` takes ``jax.value_and_grad`` of its own ``loss_fn``.
+
+Tolerances, in f32:
+  * loss: 1e-5 relative; the frameworks' f32 reduction order differs;
+  * a gradient, parameter or moment leaf: 1e-4 of the leaf's largest
+    magnitude (GRAD_TOL), the same rounding carried through the backward
+    of a few layers, plus 1e-9 for leaves whose gradient is zero but for
+    rounding (a key bias shifts each query's scores alike: ~1e-12);
+  * after AdamW steps, the steps taken agree within 1e-3 of lr at all but
+    1% of each leaf's elements, and within 1e-2 of lr at every element
+    whose gradient at every step is above 1e-6 of its leaf's largest and,
+    once clipped, above 10 x AdamW's eps.  AdamW's step is a normalised
+    gradient, m / (sqrt(v) + eps): it passes each element's relative
+    rounding on whole, and that is large for small elements (a gradient
+    of 1e-7 may carry 1e-2), for those near eps, for those of noise
+    level, whose sign may differ, and where steps of opposite sign cancel
+    in m.  After three steps the gradients come from parameters that are
+    that far apart already, so m and v are held at 1e-3 of their leaf's
+    largest (measured: 1.8e-4).
+  * microbatch accumulation in bf16: 1e-2 of the leaf's largest (the f32
+    gradients rounded to bf16 may round apart by one bf16 ulp).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+from repro.configs import RunConfig as JRunConfig
+from repro.configs import resolve as jresolve
+from repro.configs.base import ShapeConfig
+from repro.launch.steps import _accum_dtype as j_accum_dtype
+from repro.launch.steps import _microbatched as j_microbatched
+from repro.models import init_model as jinit
+from repro.models import loss_fn as jloss_fn
+from repro.optim import adamw as jadamw
+from repro_torch import _tree
+from repro_torch.bridge import params_from_repro, params_to_repro
+from repro_torch.configs import RunConfig, resolve
+from repro_torch.launch import train
+from repro_torch.launch.steps import build_train_step, init_train_state
+from repro_torch.models import loss_fn, model_forward
+from repro_torch.optim import AdamWConfig
+
+LOSS_TOL = 1e-5
+GRAD_TOL = 1e-4
+ATOL = 1e-9            # a leaf whose gradient is 0 analytically (a K bias)
+BF16_ACCUM_TOL = 1e-2
+NOISE = 1e-6           # a gradient below NOISE x max|g| may flip sign
+EPS_FACTOR = 10        # AdamW's update is sensitive where |g| ~ its eps
+UPDATE_TOL = 1e-3      # of lr: the steps taken by the two AdamWs...
+UPDATE_MAX = 1e-2      # ...and the most any robust element's may differ
+LATER_MOMENT_TOL = 1e-3  # m, v after steps taken from parameters apart
+FLIP_SHARE = 1e-2      # at most this share of a leaf's elements disagree
+FAMILIES = ["llama3.2-3b", "mamba2-780m", "zamba2-7b",
+            "granite-moe-3b-a800m", "llava-next-mistral-7b",
+            "whisper-large-v3"]
+B, T = 2, 12
+_jupdate = jax.jit(jadamw.adamw_update, static_argnums=0)
+
+
+@pytest.fixture(scope="module")
+def zoo():
+    """``get(arch) -> (repro config, port config, repro's init as numpy,
+    jitted value_and_grad of repro's loss_fn(params, tokens, labels,
+    extra))``, each arch made once for the module."""
+    made = {}
+
+    def get(arch):
+        if arch not in made:
+            jc, tc = jresolve(arch, smoke=True), resolve(arch, smoke=True)
+            tree = jax.tree.map(np.asarray, jax.jit(jinit, static_argnums=1)(
+                jax.random.PRNGKey(0), jc))
+            jvg = jax.jit(jax.value_and_grad(
+                lambda p, t, l, e: jloss_fn(p, jc, t, l, extra_embeds=e)))
+            made[arch] = jc, tc, tree, jvg
+        return made[arch]
+    return get
+
+
+def _batch(cfg, seed, b=B):
+    """numpy tokens, labels (next tokens, a few set to -100) and the
+    family's extra embeddings (or None)."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(1, cfg.vocab_size, (b, T + 1)).astype(np.int32)
+    labels = toks[:, 1:].copy()
+    labels[0, :3] = -100
+    labels[-1, -1] = -100
+    n = {"vlm": cfg.vision_tokens, "audio": cfg.encoder_seq}.get(cfg.family)
+    extra = None if n is None else \
+        (rng.normal(size=(b, n, cfg.d_model)) * 0.02).astype(np.float32)
+    return toks[:, :-1].copy(), labels, extra
+
+
+def _torch_batch(toks, labels, extra):
+    return (torch.tensor(toks, dtype=torch.long), torch.tensor(labels),
+            None if extra is None else torch.tensor(extra))
+
+
+def _jax_batch(toks, labels, extra):
+    return (jnp.asarray(toks), jnp.asarray(labels),
+            None if extra is None else jnp.asarray(extra))
+
+
+def _leaf_close(got, want, tol, name=""):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape, (name, got.shape, want.shape)
+    assert np.isfinite(got).all(), name
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    assert err <= tol * scale + ATOL, \
+        f"{name}: max err {err} > {tol} x {scale} + {ATOL}"
+
+
+def _flat(tree):
+    return {"/".join(map(str, p)): np.asarray(v, np.float32)
+            for p, v in _tree.flatten(jax.tree.map(np.asarray, tree))}
+
+
+def _trees_close(mine, theirs, cfg, tol):
+    got, want = _flat(params_to_repro(mine, cfg)), _flat(theirs)
+    assert set(got) == set(want)
+    for k in want:
+        _leaf_close(got[k], want[k], tol, k)
+
+
+# ---------------------------------------------------------------------------
+# loss and gradient, every family
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_loss_and_grads_match_repro(zoo, arch):
+    _, tc, tree, jvg = zoo(arch)
+    toks, labels, extra = _batch(tc, seed=len(arch))
+    jl, jg = jvg(tree, *_jax_batch(toks, labels, extra))
+    params, _ = init_train_state(params_from_repro(tree, tc, device="cpu"),
+                                 device="cpu")
+    ttok, tlab, tex = _torch_batch(toks, labels, extra)
+    loss = loss_fn(params, tc, ttok, tlab, extra_embeds=tex)
+    grads = torch.autograd.grad(loss, _tree.leaves(params),
+                                allow_unused=True, materialize_grads=True)
+    assert loss.dtype == torch.float32 and loss.ndim == 0
+    assert abs(float(loss.detach()) - float(jl)) <= LOSS_TOL * abs(float(jl))
+    _trees_close(_tree.unflatten(params, grads), jg, tc, GRAD_TOL)
+
+
+def test_masked_labels_and_vlm_prefix(zoo):
+    """Every label masked gives 0 (the mean's denominator is clamped to
+    1); the vlm loss is over the text positions only: its logits' prefix
+    is cut off, so moving the patches changes the loss through attention
+    alone, and the number of loss positions is the text length."""
+    _, tc, tree, _ = zoo("llava-next-mistral-7b")
+    params = params_from_repro(tree, tc, device="cpu")
+    toks, labels, extra = _torch_batch(*_batch(tc, seed=1))
+    masked = torch.full_like(labels, -100)
+    assert float(loss_fn(params, tc, toks, masked,
+                         extra_embeds=extra)) == 0.0
+    logits, _ = model_forward(params, tc, toks, extra_embeds=extra)
+    assert logits.shape[1] == tc.vision_tokens + T
+    text = logits[:, tc.vision_tokens:].float()
+    want = torch.nn.functional.cross_entropy(
+        text.reshape(-1, tc.vocab_size), labels.reshape(-1).long(),
+        ignore_index=-100)
+    assert abs(float(loss_fn(params, tc, toks, labels, extra_embeds=extra))
+               - float(want)) <= LOSS_TOL * float(want)
+
+
+# ---------------------------------------------------------------------------
+# the train step
+# ---------------------------------------------------------------------------
+
+def _sensitive(grads, eps) -> dict:
+    """Per leaf, the elements whose AdamW update rounding may move far:
+    a gradient below NOISE of the leaf's largest (its sign is noise), or
+    one whose clipped value is below EPS_FACTOR x eps (the update
+    g / (|g| + eps) then turns a relative error of g into one of the
+    update)."""
+    gs = _flat(grads)
+    clip = min(1.0, 1.0 / float(np.sqrt(sum(
+        (g.astype(np.float64) ** 2).sum() for g in gs.values()))))
+    return {k: (np.abs(g) <= NOISE * np.abs(g).max())
+            | (np.abs(g) * clip <= EPS_FACTOR * eps) for k, g in gs.items()}
+
+
+def _update_close(got, want, before, skip, lr, name):
+    """Parameters after AdamW: the steps taken agree within UPDATE_TOL of
+    lr but for a FLIP_SHARE of the elements, and within UPDATE_MAX of lr
+    at every element that is not ``skip`` (``_sensitive`` at some
+    step)."""
+    got, want, before = (np.asarray(a, np.float64)
+                         for a in (got, want, before))
+    err = np.abs((got - before) - (want - before))
+    assert (err > UPDATE_TOL * lr).mean() <= FLIP_SHARE, \
+        f"{name}: {(err > UPDATE_TOL * lr).sum()} of {err.size} disagree"
+    worst = float(err[~skip].max(initial=0.0))
+    assert worst <= UPDATE_MAX * lr, f"{name}: update err {worst} vs lr {lr}"
+
+
+@pytest.mark.parametrize("steps", [1, 3])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "mamba2-780m"])
+def test_train_steps_match_repro(zoo, arch, steps):
+    """The port's replicated step against ``repro``'s value_and_grad of
+    ``loss_fn`` then ``adamw_update``: each step's loss, and the
+    parameters, m, v and count after the last."""
+    _, tc, tree, jvg = zoo(arch)
+    opt = AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=steps)
+    jopt = jadamw.AdamWConfig(**dataclasses.asdict(opt))
+    step = build_train_step(RunConfig(model=tc), opt)
+    params, state = init_train_state(
+        params_from_repro(tree, tc, device="cpu"), device="cpu")
+    jparams = jax.tree.map(jnp.asarray, tree)
+    jstate = jadamw.adamw_init(jparams)
+    skip = None
+    for s in range(steps):
+        toks, labels, _ = _batch(tc, seed=100 + s)
+        jl, jg = jvg(jparams, *_jax_batch(toks, labels, None))
+        sens = _sensitive(jg, opt.eps)
+        skip = sens if skip is None else {k: skip[k] | sens[k] for k in skip}
+        jparams, jstate = _jupdate(jopt, jg, jstate, jparams)
+        loss, params, state = step(params, state,
+                                   *_torch_batch(toks, labels, None)[:2])
+        assert abs(float(loss) - float(jl)) <= LOSS_TOL * abs(float(jl))
+    assert state["count"] == int(jstate["count"]) == steps
+    got, want, before = (_flat(params_to_repro(params, tc)), _flat(jparams),
+                         _flat(tree))
+    for k in want:
+        _update_close(got[k], want[k], before[k], skip[k], opt.lr, k)
+    for mine, theirs in ((state["m"], jstate["m"]),
+                         (state["v"], jstate["v"])):
+        _trees_close(mine, theirs, tc,
+                     GRAD_TOL if steps == 1 else LATER_MOMENT_TOL)
+
+
+def test_step_matches_repros_registered_replicated_step(zoo):
+    """``repro``'s own replicated ``train_step`` (the ``native`` flavor,
+    through ``build_train_step_lane`` on a one-device mesh, as its
+    ``launch.train`` runs it) against the port's step, one step."""
+    from jax.sharding import PartitionSpec as P
+    from repro.launch.steps import (build_train_step_lane,
+                                    init_lane_train_state)
+    from repro.launch.mesh import batch_axes
+    jc, tc, tree, jvg = zoo("llama3.2-3b")
+    opt = AdamWConfig(lr=1e-2, warmup_steps=0, total_steps=4)
+    jopt = jadamw.AdamWConfig(**dataclasses.asdict(opt))
+    mesh = jax.make_mesh((1, 1), ("data", "model"))
+    jrun = JRunConfig(model=jc, shape=ShapeConfig("t", T, B, "train"))
+    jstep, comm = build_train_step_lane(jc, jrun, jopt, mesh, None)
+    st = init_lane_train_state(jc, jrun, mesh, jax.tree.map(jnp.asarray,
+                                                            tree), comm=comm)
+    dspec = P(batch_axes(mesh))
+    fn = jax.jit(jax.shard_map(
+        jstep, mesh=mesh, in_specs=(st.pspecs, st.ospecs, dspec, dspec,
+                                    None),
+        out_specs=(P(), st.pspecs, st.ospecs), check_vma=False))
+    toks, labels, _ = _batch(tc, seed=5)
+    jl, jparams, jstate = fn(st.params, st.opt_state, jnp.asarray(toks),
+                             jnp.asarray(labels), None)
+    params, state = init_train_state(
+        params_from_repro(tree, tc, device="cpu"), device="cpu")
+    loss, params, state = build_train_step(RunConfig(model=tc), opt)(
+        params, state, *_torch_batch(toks, labels, None)[:2])
+    assert abs(float(loss) - float(jl)) <= LOSS_TOL * abs(float(jl))
+    _, jg = jvg(tree, *_jax_batch(toks, labels, None))
+    got, want, before = (_flat(params_to_repro(params, tc)), _flat(jparams),
+                         _flat(tree))
+    skip = _sensitive(jg, opt.eps)
+    for k in want:
+        _update_close(got[k], want[k], before[k], skip[k], opt.lr, k)
+
+
+@pytest.mark.parametrize("accum", ["float32", "bfloat16"])
+def test_microbatched_matches_repro(zoo, accum):
+    """``microbatch=2``: the loss is the mean of the halves' losses and
+    the gradient their mean, accumulated in ``accum`` (``repro``'s
+    ``_microbatched`` over its ``value_and_grad``)."""
+    jc, tc, tree, _ = zoo("llama3.2-3b")
+    toks, labels, _ = _batch(tc, seed=9, b=4)
+    jrun = JRunConfig(model=jc, shape=ShapeConfig("t", T, 4, "train"),
+                      microbatch=2, accum_dtype=accum)
+    jvg = j_microbatched(
+        lambda p, t, l, e: jax.value_and_grad(
+            lambda q: jloss_fn(q, jc, t, l))(p),
+        jrun.microbatch, j_accum_dtype(jrun))
+    jl, jg = jax.jit(lambda p, t, l: jvg(p, t, l, None))(
+        tree, jnp.asarray(toks), jnp.asarray(labels))
+    # the port's step, with AdamW swapped for a recorder of its gradients
+    from repro_torch.launch import steps
+    run = RunConfig(model=tc, microbatch=2, accum_dtype=accum)
+    vg = steps._microbatched(steps._value_and_grad(steps._make_loss(run)),
+                             run.microbatch, steps._accum_dtype(run))
+    params, _ = init_train_state(params_from_repro(tree, tc, device="cpu"),
+                                 device="cpu")
+    loss, grads = vg(params, *_torch_batch(toks, labels, None)[:2], None)
+    want_dtype = torch.bfloat16 if accum == "bfloat16" else torch.float32
+    assert all(g.dtype == want_dtype for g in _tree.leaves(grads))
+    assert abs(float(loss) - float(jl)) <= LOSS_TOL * abs(float(jl))
+    _trees_close(grads, jg, tc,
+                 GRAD_TOL if accum == "float32" else BF16_ACCUM_TOL)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "zamba2-7b",
+                                  "whisper-large-v3"])
+def test_remat_full_equals_none(zoo, arch):
+    """Recomputing every layer in the backward (the encoder's and the
+    hybrid's shared block too) gives the same loss and gradient."""
+    _, tc, tree, _ = zoo(arch)
+    batch = _torch_batch(*_batch(tc, seed=2))
+    out = []
+    for remat in ("none", "full"):
+        params, _ = init_train_state(
+            params_from_repro(tree, tc, device="cpu"), device="cpu")
+        loss = loss_fn(params, tc, batch[0], batch[1], extra_embeds=batch[2],
+                       remat=remat)
+        out.append((loss, torch.autograd.grad(loss, _tree.leaves(params))))
+    (l0, g0), (l1, g1) = out
+    assert torch.equal(l0, l1)
+    for a, b in zip(g0, g1):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-9)
+
+
+def test_remat_dots_and_gradsync_name_their_items(zoo):
+    _, tc, tree, _ = zoo("llama3.2-3b")
+    params = params_from_repro(tree, tc, device="cpu")
+    toks, labels, _ = _torch_batch(*_batch(tc, seed=0))
+    with pytest.raises(NotImplementedError, match="item 6"):
+        loss_fn(params, tc, toks, labels, remat="dots")
+    with pytest.raises(ValueError, match="remat"):
+        RunConfig(model=tc, remat="some")
+    with pytest.raises(ValueError, match="accum_dtype"):
+        RunConfig(model=tc, accum_dtype="float16")
+    for strategy in ("lane", "lane_zero3", "auto"):
+        with pytest.raises(NotImplementedError, match="items 7-8"):
+            RunConfig(model=tc, gradsync=strategy)
+
+
+# ---------------------------------------------------------------------------
+# the training loop (launch.train.main)
+# ---------------------------------------------------------------------------
+
+def test_train_main_on_cpu_loss_falls(capsys):
+    losses = train.main(["--arch", "llama3.2-3b", "--smoke", "--steps", "6",
+                         "--batch", "4", "--seq", "32", "--log-every", "2",
+                         "--device", "cpu"])
+    assert len(losses) == 6 and all(np.isfinite(losses))
+    assert losses[-1] < losses[0]
+    out = capsys.readouterr().out
+    assert "step     0  loss" in out and out.rstrip().endswith("OK")
+
+
+def test_train_main_microbatch_and_remat_on_cpu():
+    a = train.main(["--arch", "mamba2-780m", "--smoke", "--steps", "2",
+                    "--batch", "4", "--seq", "16", "--device", "cpu"])
+    b = train.main(["--arch", "mamba2-780m", "--smoke", "--steps", "2",
+                    "--batch", "4", "--seq", "16", "--device", "cpu",
+                    "--microbatch", "2", "--remat", "full"])
+    np.testing.assert_allclose(a, b, rtol=1e-5)
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--ckpt", "runs/x"], "item 9"),
+    (["--ckpt-every", "5"], "item 9"),
+    (["--fault-plan", "seed:1"], "item 10"),
+    (["--tune"], "item 10"),
+    (["--tuning-cache", "t.json"], "item 10"),
+    (["--model-parallel", "2"], "item 10"),
+    (["--expert-parallel"], "item 10"),
+    (["--ep-blocks", "2"], "item 10"),
+    (["--lose-chips", "1"], "item 10"),
+    (["--quorum-staleness", "3"], "item 10"),
+    (["--max-restarts", "0"], "item 10"),
+    (["--gradsync-buckets", "4"], "item 8"),
+    (["--fsdp-prefetch", "2"], "item 9"),
+    (["--fsdp-regather"], "item 9"),
+    (["--gradsync", "lane"], "items 7-8"),
+    (["--pods", "2"], "item 7"),
+    (["--remat", "dots"], "item 6"),
+])
+def test_train_main_unported_flags_raise(flags, item):
+    with pytest.raises(NotImplementedError, match=item):
+        train.main(["--arch", "llama3.2-3b", "--smoke", "--steps", "1",
+                    "--batch", "2", "--seq", "8", "--device", "cpu",
+                    *flags])
