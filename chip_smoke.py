@@ -89,7 +89,28 @@ and the script exits non-zero:
      (model FLOPs over the bf16 dense peak, on a line of its own), peak
      memory, and the last step traced: device busy, idle share, device
      operations, the forward / backward / optimizer split, and per layer
-     the kernel's forward and its backward's device time.
+     the kernel's forward and its backward's device time;
+  8. the node/lane collectives and the gradient sync (``core``,
+     ``comm``, ``optim/gradsync.py``, ``launch/mesh.py``):
+     (a) a torch.distributed world over NCCL through ``launch.mesh``, file
+     rendezvous under build/: one process on cuda:0, so p = n = N = 1
+     with one card visible (NCCL across several cards is not checked);
+     (b) every collective, lane, native and pipelined, in f32, bf16 and
+     int32 at odd leading dims, against ``core.ref``'s oracles, exactly
+     (at p = 1 the NCCL code path, not the multi-rank semantics);
+     (c) the gradients of one bf16 llama3.2-3b step at 4 x 1024 tokens
+     through ``LaneComm.grad_sync`` with native, lane, lane_pipelined (the
+     cost model's K, and K=1) and lane_int8: each one's device time (CUDA
+     events), peak memory above the gradients (at most one flat f32 copy
+     for lane and lane_pipelined), K and device operations; lane and
+     lane_pipelined bit-identical to native; lane_int8 within half a
+     quantization step per 1024-element chunk (the bf16 cast on top), its
+     relative error printed, and its bucket 0 wire bytes equal to the
+     CPU's;
+     (d) on the CPU with gloo, not the card: 4 spawned ranks (2 pods x 2)
+     train llama3.2-3b --smoke 3 steps with --gradsync lane
+     --gradsync-buckets 4; the losses equal the one-process run's within
+     1e-6 and the parameters are bitwise equal across ranks.
 
 Both kernels choose by dtype inside their C entry point: bf16 (the
 serving and training paths) runs on the tensor cores, f32 on the CUDA
@@ -110,6 +131,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
@@ -131,9 +153,14 @@ from repro_torch.serve import (  # noqa: E402
 from repro_torch.serve import prng  # noqa: E402
 from repro_torch.serve.sampling import sample_token  # noqa: E402
 from repro_torch.serve.engine import DEFAULT_BUCKETS  # noqa: E402
-from repro_torch.launch import steps, train  # noqa: E402
+from repro_torch.launch import mesh, steps, train  # noqa: E402
 from repro_torch.launch.steps import init_train_state  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_update  # noqa: E402
+from repro_torch.optim import gradsync  # noqa: E402
+from repro_torch.comm import CommConfig, LaneComm  # noqa: E402
+from repro_torch.comm.impls import grad_sync_buckets  # noqa: E402
+from repro_torch.core import ref as oracles  # noqa: E402
+from repro_torch.core.pipeline import pipelined_allgather_lane  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12         # dense tensor-core peak, bf16
@@ -1363,8 +1390,8 @@ class StepClock:
     def __enter__(self):
         self.build = train.build_train_step
 
-        def build(run, opt):
-            step = self.build(run, opt)
+        def build(*args, **kw):
+            step = self.build(*args, **kw)
 
             def timed_step(*args):
                 torch.cuda.synchronize()
@@ -1501,6 +1528,303 @@ def report_traced_step(cfg, name, clock) -> None:
            and cpu[bwd].device_time_total else "not measured"))
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the node/lane collectives and the gradient sync
+# ---------------------------------------------------------------------------
+
+LANE_ARCH = "llama3.2-3b"
+LANE_ROWS = (3, 5, 9)                    # odd leading dims (x feature 2)
+LANE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
+               "int32": torch.int32}
+# (label, strategy, num_buckets): None = the cost model's K
+LANE_SYNCS = (("native", "native", None), ("lane", "lane", None),
+              ("lane_pipelined", "lane_pipelined", None),
+              ("lane_pipelined K=1", "lane_pipelined", 1),
+              ("lane_int8", "lane_int8", None))
+ALLOC_SLACK = 64 * 2**20                 # allocator rounding, small buffers
+LANE_CPU_ARGV = ["--arch", LANE_ARCH, "--smoke", "--steps", "3", "--batch",
+                 "4", "--seq", "32", "--gradsync", "lane", "--pods", "2",
+                 "--gradsync-buckets", "4", "--device", "cpu"]
+LANE_CPU_TOL = 1e-6
+
+
+def phase_lane_world():
+    """8a: a torch.distributed world over NCCL through ``launch.mesh``, in
+    this process on cuda:0 (one process per card; with one card visible,
+    the world of every visible card), file rendezvous under build/."""
+    world = 1
+    root = pathlib.Path(__file__).resolve().parent / "build" / "lane_world"
+    root.mkdir(parents=True, exist_ok=True)
+    init = root / f"rendezvous_{time.time_ns()}"
+    mesh.init_world("cuda", rank=0, world_size=world,
+                    init_method=init.as_uri())
+    topo, single = mesh.make_lane_topology(TRAIN_BATCH, pods=1)
+    log("lanes", f"world: NCCL, p={topo.p()} (n={topo.n()} per node, "
+        f"N={topo.N()} nodes) on {torch.cuda.device_count()} visible "
+        f"card(s); NCCL across several cards is not checked here")
+    return topo, init
+
+
+def _lane_cases():
+    """(label, call(comm, topo, x), its oracle) for every lane, native and
+    pipelined cell at p = 1."""
+    out = []
+    for coll in ("allreduce", "reduce_scatter", "allgather", "bcast",
+                 "alltoall", "reduce", "gather", "scatter", "scan"):
+        for strategy in ("lane", "native"):
+            out.append((f"{coll}.{strategy}",
+                        lambda c, t, x, coll=coll, s=strategy:
+                        getattr(c, coll)(x, strategy=s),
+                        getattr(oracles, f"oracle_{coll}")))
+    for coll in ("allreduce", "bcast", "reduce"):
+        out.append((f"{coll}.lane_pipelined",
+                    lambda c, t, x, coll=coll: getattr(c, coll)(
+                        x, strategy="lane_pipelined", num_blocks=1),
+                    getattr(oracles, f"oracle_{coll}")))
+    out.append(("pipelined_allgather", lambda c, t, x:
+                pipelined_allgather_lane(x, t, num_blocks=1),
+                oracles.oracle_allgather))
+    return out
+
+
+def phase_lane_conformance(topo) -> int:
+    """8b: every collective, lane, native and pipelined, in f32, bf16 and
+    int32 at odd leading dims, on NCCL against ``core.ref``'s oracles,
+    exactly (integer-valued payloads)."""
+    comm = LaneComm(topo)
+    g = np.random.default_rng(8)
+    n_cases = 0
+    for label, call, oracle in _lane_cases():
+        for dt, tdt in LANE_DTYPES.items():
+            for rows in LANE_ROWS:
+                xs = g.integers(-4, 5, (1, rows, 2)).astype(
+                    np.int32 if dt == "int32" else np.float32)
+                x = torch.from_numpy(xs[0]).to(tdt).cuda()
+                got = call(comm, topo, x)
+                torch.cuda.synchronize()
+                if got.device != x.device or got.dtype != tdt:
+                    raise RuntimeError(f"{label} {dt}: {got.device} "
+                                       f"{got.dtype}")
+                want = oracle(xs)[0]
+                got = got.cpu().to(torch.int32 if dt == "int32"
+                                   else torch.float32).numpy()
+                if got.shape != want.shape or not np.array_equal(got, want):
+                    raise RuntimeError(f"{label} {dt} rows {rows}: not "
+                                       f"equal to its oracle")
+                n_cases += 1
+    log("lanes", f"conformance: {n_cases} cases (9 collectives x lane/"
+        f"native, 3 pipelined and the pipelined allgather; f32, bf16, "
+        f"int32; rows {LANE_ROWS}) on NCCL equal core.ref's oracles "
+        f"exactly; at p=1 this checks the NCCL code path, not the "
+        f"multi-rank semantics (those are the CPU gloo tests)")
+    return n_cases
+
+
+def _int8_chunk_error(x, y):
+    """Per 1024-element chunk of one bucket: the largest error of ``y``
+    against ``x`` (the gradients, exact in f32) over half the chunk's
+    quantization step, (max|chunk|/127 + 1e-12)/2 (``repro``'s
+    max|chunk|/254 with the quantizer's scale offset, which is all of the
+    step where a chunk's values are below 1e-12); and the sums of squares
+    of the error and of x."""
+    pad = (-x.shape[0]) % 1024
+    xr = torch.cat([x, x.new_zeros(pad)]).view(-1, 1024)
+    yr = torch.cat([y, y.new_zeros(pad)]).view(-1, 1024)
+    half_step = (xr.abs().amax(1) / 127.0 + 1e-12) / 2
+    ratio = float(((yr - xr).abs().amax(1) / half_step).max())
+    return ratio, float(((yr - xr) ** 2).sum()), float((xr ** 2).sum())
+
+
+def phase_lane_gradsync(topo, name) -> dict:
+    """8c: the gradients of one bf16 llama3.2-3b step at TRAIN_BATCH x
+    TRAIN_SEQ tokens (phase 7's configuration, SyntheticLM seed 0)
+    through ``LaneComm.grad_sync`` with every ported strategy: device
+    time (CUDA events), peak memory above the gradients, K and the device
+    operations of each; lane and lane_pipelined equal native bit for bit;
+    lane_int8 within its half-step bound, its bucket's wire bytes equal
+    to the CPU's."""
+    held = torch.cuda.memory_allocated()
+    if held > 2**30:
+        raise RuntimeError(f"{held / 2**30:.2f} GiB still held before the "
+                           f"gradient sync")
+    cfg = resolve(LANE_ARCH)
+    vg = steps._value_and_grad(steps._make_loss(RunConfig(model=cfg)))
+    toks, labels = make_loader(cfg, TRAIN_SEQ, TRAIN_BATCH,
+                               seed=0).batch_at(0)
+    params = _tree.tree_map(lambda p: p.requires_grad_(True),
+                            init_model(cfg, seed=0, device="cuda"))
+    fa.launches = k2.launches = 0
+    with torch.enable_grad():
+        loss, grads = vg(params, torch.as_tensor(toks).cuda(),
+                         torch.as_tensor(labels).cuda(), None)
+    torch.cuda.synchronize()
+    launches = {"flash_attention": fa.launches, "ssd": k2.launches}
+    del params
+    torch.cuda.empty_cache()
+    leaves = _tree.leaves(grads)
+    ref_leaves = [g.clone() for g in leaves]
+    numel = sum(g.numel() for g in leaves)
+    grad_bytes = sum(g.numel() * g.element_size() for g in leaves)
+    log("lanes", f"{LANE_ARCH}: {numel / 1e9:.3f} B gradients in "
+        f"{leaves[0].dtype} ({grad_bytes / 2**30:.2f} GiB, {len(leaves)} "
+        f"leaves) from one bf16 step at {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+        f"loss {float(loss):.4f}; K1 launches {launches}")
+    comm = LaneComm(topo, CommConfig())
+
+    def restore():
+        for g, r in zip(leaves, ref_leaves):
+            g.copy_(r)
+
+    results = {}
+    native = None
+    for label, strategy, nb in LANE_SYNCS:
+        K = grad_sync_buckets(comm, grads, nb) if strategy != "native" \
+            else 1
+        flat_bytes = 4 * (numel + (-numel) % (K * topo.n()))
+        times = []
+        for _ in range(3):
+            restore()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            comm.grad_sync(grads, strategy=strategy, num_buckets=nb)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+            peak = torch.cuda.max_memory_allocated() - base
+        if strategy == "native":
+            native = [g.clone() for g in leaves]
+            if not all(torch.equal(a, b) for a, b in zip(native,
+                                                         ref_leaves)):
+                raise RuntimeError("native grad_sync at p=1 changed the "
+                                   "gradients")
+        elif strategy == "lane_int8":
+            int8 = check_int8(topo, grads, ref_leaves, K)
+        elif not all(torch.equal(a, b) for a, b in zip(leaves, native)):
+            raise RuntimeError(f"{label}: not bit-identical to native")
+        if strategy in ("lane", "lane_pipelined") \
+                and peak > flat_bytes + ALLOC_SLACK:
+            raise RuntimeError(f"{label}: {peak / 2**30:.2f} GiB above the "
+                               f"gradients, more than one flat f32 copy "
+                               f"({flat_bytes / 2**30:.2f} GiB)")
+
+        tr = traced(lambda: comm.grad_sync(grads, strategy=strategy,
+                                           num_buckets=nb))
+        ops = "not measured" if tr is None else tr[2]
+        results[label] = dict(ms=float(np.median(times)), peak=peak, K=K,
+                              ops=ops, flat=flat_bytes)
+        log("lanes", f"{name} | grad_sync {label}: device "
+            f"{np.median(times):.2f} ms (CUDA events, median of 3, "
+            f"flatten and unflatten included; min {min(times):.2f}), peak "
+            f"{peak / 2**30:.3f} GiB above the gradients (one flat f32 copy "
+            f"{flat_bytes / 2**30:.3f} GiB), "
+            + (f"K={K}, " if strategy != "native" else "per leaf, ")
+            + f"device operations "
+            f"{ops} (one traced sync)"
+            + ("; bit-identical to native" if label != "native"
+               and strategy != "lane_int8" else ""))
+    log("lanes", f"{name} | lane_int8: equal to the gradients quantized, "
+        f"dequantized and cast, element for element; dequantized f32 "
+        f"within {int8[3]:.6f} of its half step (max|chunk|/127 + 1e-12)/2 "
+        f"(gate 1 + 2^-14, f32 rounding); after the cast to the leaves' dtype, relative error "
+        f"{int8[0]:.3e} (||int8 - native|| / ||native||) and largest chunk "
+        f"error {int8[1]:.3f} half steps (readings); bucket 0's wire bytes "
+        f"({int8[2]} B) equal the CPU's")
+    del grads, leaves, ref_leaves, native
+    torch.cuda.empty_cache()
+    return {f"gradsync {LANE_ARCH}": launches}
+
+
+def check_int8(topo, grads, ref_leaves, K):
+    """lane_int8 at p = 1, where its result is known exactly: every
+    bucket's f32 values quantized and dequantized (``compress_int8`` then
+    ``decompress_int8``, on the card), then cast to each leaf's dtype.
+    Gated: the synced leaves equal that exactly; the dequantized f32
+    values lie within ``repro``'s half step of the gradients; bucket 0's
+    packed bytes on the card equal the CPU's.  Read, not gated: the
+    relative error of the synced leaves and their worst chunk error in
+    half steps (the cast to the leaves' dtype on top)."""
+    flat_x, _ = gradsync._flatten_bucket(
+        _tree.unflatten(grads, ref_leaves), pad_to=K * topo.n())
+    bsz = flat_x.shape[0] // K
+    x0 = flat_x[:bsz]
+    card = gradsync.pack_int8_payload(*gradsync.compress_int8(x0)[:2])
+    cpu = gradsync.pack_int8_payload(*gradsync.compress_int8(x0.cpu())[:2])
+    if not torch.equal(card.cpu(), cpu):
+        raise RuntimeError("lane_int8: bucket 0's wire bytes on the card "
+                           "differ from the CPU's")
+    nbytes = card.numel()
+    del card, cpu
+    flat_y, _ = gradsync._flatten_bucket(grads, pad_to=K * topo.n())
+    worst, e2, x2 = 0.0, 0.0, 0.0
+    for b in range(K):
+        sl = slice(b * bsz, (b + 1) * bsz)
+        ratio, e, x = _int8_chunk_error(flat_x[sl], flat_y[sl])
+        worst, e2, x2 = max(worst, ratio), e2 + e, x2 + x
+    del flat_y
+    deq_worst = 0.0
+    for b in range(K):                   # flat_x becomes the expected sync
+        sl = slice(b * bsz, (b + 1) * bsz)
+        deq = gradsync.decompress_int8(*gradsync.compress_int8(flat_x[sl]))
+        deq_worst = max(deq_worst, _int8_chunk_error(flat_x[sl], deq)[0])
+        flat_x[sl] = deq
+    # f32 rounding of x/scale and of q*scale: < 2 * 127 * 2^-24 of a step
+    if deq_worst > 1 + 2.0 ** -14:
+        raise RuntimeError(f"lane_int8: dequantized values past the half "
+                           f"step ({deq_worst:.6f} of it)")
+    ofs, bad = 0, 0
+    for g in _tree.leaves(grads):
+        want = flat_x[ofs:ofs + g.numel()].view(g.shape).to(g.dtype)
+        bad += int((g != want).sum())
+        ofs += g.numel()
+    if bad:
+        raise RuntimeError(f"lane_int8: {bad} elements differ from the "
+                           f"gradients quantized, dequantized and cast")
+    del flat_x
+    return (e2 / x2) ** 0.5, worst, nbytes, deq_worst
+
+
+def phase_lane_cpu() -> None:
+    """8d, on the CPU (gloo), not the card: 4 spawned ranks, 2 pods x 2,
+    train LANE_ARCH --smoke for 3 steps with --gradsync lane
+    --gradsync-buckets 4; the losses equal the one-process run's on the
+    same global batch within LANE_CPU_TOL, the parameters are bitwise
+    equal across ranks.  This is how the chip machine's torch gets its
+    torch.distributed calls checked."""
+    ranks = mesh.spawn(train.rank_worker, 4, LANE_CPU_ARGV)
+    one = train.main([a for a in LANE_CPU_ARGV if a not in ("--pods", "2")])
+    digests = {d for _, d in ranks}
+    for losses, _ in ranks:
+        err = max(abs(a - b) / abs(b) for a, b in zip(losses, one))
+        if len(losses) != 3 or err > LANE_CPU_TOL:
+            raise RuntimeError(f"4-rank losses {losses} against one "
+                               f"process {one}")
+    if len(digests) != 1:
+        raise RuntimeError(f"parameters differ across ranks: {digests}")
+    log("lanes", f"cpu, gloo (torch {torch.__version__}), not the card: 4 "
+        f"ranks (2 pods x 2) train {LANE_ARCH} --smoke 3 steps with "
+        f"--gradsync lane --gradsync-buckets 4: losses "
+        f"{[round(x, 6) for x in ranks[0][0]]} equal the one-process run's "
+        f"within {LANE_CPU_TOL:g} (worst {err:.2e}); parameters bitwise "
+        f"equal on every rank")
+
+
+def phase_lanes(name) -> dict:
+    topo, init = timed("8a lane world", phase_lane_world)
+    try:
+        timed("8b lane conformance", phase_lane_conformance, topo)
+        launches = timed("8c gradient sync", phase_lane_gradsync, topo, name)
+    finally:
+        dist.destroy_process_group()
+        init.unlink(missing_ok=True)
+    with torch.enable_grad():
+        timed("8d cpu gloo train", phase_lane_cpu)
+    return launches
+
+
 def timed(label, fn, *args, **kw):
     t0 = time.perf_counter()
     out = fn(*args, **kw)
@@ -1555,6 +1879,7 @@ def main() -> int:
             launches[f"train {arch}"] = timed(f"train {arch}", phase_train,
                                               resolve(arch), name)
             torch.cuda.empty_cache()
+    launches.update(timed("lane collectives", phase_lanes, name))
     log("time", f"total: {time.perf_counter() - t_start:.1f} s")
     by_path = {k: {a: n[k] for a, n in launches.items()}
                for k in ("flash_attention", "ssd")}

@@ -1,0 +1,300 @@
+"""Registered implementations of every LaneComm collective.
+
+Counterpart of ``repro.comm.impls``: each (collective, strategy) cell is
+one ``@register_impl`` registration wrapping the §3 mock-ups
+(:mod:`repro_torch.core.collectives`), the §5 pipelined constructions
+(:mod:`repro_torch.core.pipeline`) and the bucketed gradient sync
+(:mod:`repro_torch.optim.gradsync`).
+
+Registration legend per collective:
+
+  native           one call over the whole communicator (the baseline the
+                   paper's decompositions are measured against); the
+                   rooted ones are torch.distributed's rooted collectives
+  lane             full-lane mock-up (Listings 1-6)
+  lane_pipelined   §5 pipelined construction (allreduce/bcast/reduce;
+                   bcast/reduce rings are rooted at lane 0, so they are
+                   never auto-selected)
+  grad_sync        the training collective: native / lane /
+                   lane_pipelined / lane_int8, each in place
+
+The cells of later ROADMAP items (``lane_zero1``, ``lane_zero3``,
+``prefetch_allgather`` and ``kv_splice``: item 9; ``lane_quorum`` and
+``moe_route``: item 10) stay unregistered; resolving one raises
+``NotImplementedError`` naming its item (``registry.UNPORTED``).
+"""
+from __future__ import annotations
+
+import torch.distributed as dist
+
+from repro_torch import _tree
+from repro_torch.core import collectives as C
+from repro_torch.core.lane import LaneTopology
+from repro_torch.core.pipeline import (
+    _pipelined_allreduce_lane, pipelined_allreduce_, pipelined_bcast_lane,
+    pipelined_reduce_lane,
+)
+from repro_torch.optim.gradsync import (
+    _ag_node, _ar_lane, _ar_lane_int8, _flatten_bucket, _rs_node,
+    _unflatten_bucket, bucket_schedule, resolve_num_buckets,
+)
+
+from . import costs
+from .layout import register_param_layout
+from .registry import register_impl
+
+__all__ = []  # everything is reached through the registry
+
+
+# ---------------------------------------------------------------------------
+# feasibility predicates (leading-dim divisibility of the §3 mock-ups)
+# ---------------------------------------------------------------------------
+
+def _div_n(n, N, lead):
+    return lead % max(n, 1) == 0
+
+
+def _div_p(n, N, lead):
+    return lead % max(n * N, 1) == 0
+
+
+def _root(topo: LaneTopology, root_lane: int, root_node: int):
+    """(world rank of the root, whether this process is it)."""
+    g = root_lane * topo.n() + root_node
+    return topo.rank_of(g), topo.global_rank() == g
+
+
+# ---------------------------------------------------------------------------
+# allreduce
+# ---------------------------------------------------------------------------
+
+@register_impl("allreduce", "native", cost=costs.native_cost("allreduce"))
+def _allreduce_native(comm, x):
+    return C.native_allreduce(x, comm.topo)
+
+
+@register_impl("allreduce", "lane", cost=costs.lane_cost("allreduce"),
+               feasible=_div_n)
+def _allreduce_lane(comm, x):
+    return C.allreduce_lane(x, comm.topo)
+
+
+@register_impl("allreduce", "lane_pipelined",
+               cost=costs.cost_pipelined_allreduce, feasible=_div_n)
+def _allreduce_pipelined(comm, x, *, num_blocks=None):
+    """§5 pipelined allreduce; num_blocks None = cost-model K shrunk to
+    the nearest divisor of the per-process block count (explicit values
+    must divide)."""
+    n = comm.topo.n()
+    lead = x.shape[0]
+    if num_blocks is None:
+        B = resolve_num_buckets(lead, n, comm.cfg.buckets)
+        while lead % (B * n):
+            B -= 1
+        num_blocks = max(B, 1)
+    return _pipelined_allreduce_lane(x, comm.topo, num_blocks=num_blocks)
+
+
+# ---------------------------------------------------------------------------
+# reduce_scatter / allgather / alltoall / scan
+# ---------------------------------------------------------------------------
+
+@register_impl("reduce_scatter", "native",
+               cost=costs.native_cost("reduce_scatter"), feasible=_div_p)
+def _rs_native(comm, x):
+    return C.native_reduce_scatter(x, comm.topo)
+
+
+@register_impl("reduce_scatter", "lane",
+               cost=costs.lane_cost("reduce_scatter"), feasible=_div_p)
+def _rs_lane(comm, x):
+    return C.reduce_scatter_lane(x, comm.topo)
+
+
+@register_impl("allgather", "native", cost=costs.native_cost("allgather"))
+def _ag_native(comm, x):
+    return C.native_allgather(x, comm.topo)
+
+
+@register_impl("allgather", "lane", cost=costs.lane_cost("allgather"))
+def _ag_lane(comm, x, *, reorder=True):
+    return C.allgather_lane(x, comm.topo, reorder=reorder)
+
+
+@register_impl("alltoall", "native", cost=costs.native_cost("alltoall"),
+               feasible=_div_p)
+def _a2a_native(comm, x):
+    return C.native_alltoall(x, comm.topo)
+
+
+@register_impl("alltoall", "lane", cost=costs.lane_cost("alltoall"),
+               feasible=_div_p)
+def _a2a_lane(comm, x):
+    return C.alltoall_lane(x, comm.topo)
+
+
+@register_impl("scan", "native", cost=costs.cost_native_scan)
+def _scan_native(comm, x):
+    return C.native_scan(x, comm.topo)
+
+
+@register_impl("scan", "lane", cost=costs.cost_lane_scan, feasible=_div_n)
+def _scan_lane(comm, x):
+    return C.scan_lane(x, comm.topo)
+
+
+# ---------------------------------------------------------------------------
+# rooted collectives (zeros off the root, as in repro)
+# ---------------------------------------------------------------------------
+
+@register_impl("bcast", "native", cost=costs.native_cost("bcast"))
+def _bcast_native(comm, x, *, root_lane=0, root_node=0,
+                  root_replicated=True):
+    """One broadcast over the whole communicator from the root."""
+    src, _ = _root(comm.topo, root_lane, root_node)
+    out = x.contiguous().clone()
+    dist.broadcast(out, src=src, group=comm.topo.group)
+    return out
+
+
+@register_impl("bcast", "lane", cost=costs.lane_cost("bcast"),
+               feasible=_div_n)
+def _bcast_lane(comm, x, *, root_lane=0, root_node=0, root_replicated=True):
+    return C.bcast_lane(x, comm.topo, root_lane=root_lane,
+                        root_node=root_node, root_replicated=root_replicated)
+
+
+@register_impl("bcast", "lane_pipelined", auto_ok=False, feasible=_div_n)
+def _bcast_pipelined(comm, x, *, num_blocks, root_lane=0):
+    return pipelined_bcast_lane(x, comm.topo, num_blocks=num_blocks,
+                                root_lane=root_lane)
+
+
+@register_impl("reduce", "native", cost=costs.native_cost("reduce"))
+def _reduce_native(comm, x, *, root_lane=0, root_node=0):
+    dst, is_root = _root(comm.topo, root_lane, root_node)
+    out = x.contiguous().clone()
+    dist.reduce(out, dst=dst, group=comm.topo.group)
+    return out if is_root else out.zero_()
+
+
+@register_impl("reduce", "lane", cost=costs.lane_cost("reduce"),
+               feasible=_div_n)
+def _reduce_lane(comm, x, *, root_lane=0, root_node=0):
+    return C.reduce_lane(x, comm.topo, root_lane=root_lane,
+                         root_node=root_node)
+
+
+@register_impl("reduce", "lane_pipelined", auto_ok=False, feasible=_div_n)
+def _reduce_pipelined(comm, x, *, num_blocks, root_lane=0):
+    return pipelined_reduce_lane(x, comm.topo, num_blocks=num_blocks,
+                                 root_lane=root_lane)
+
+
+@register_impl("gather", "native", cost=costs.native_cost("gather"))
+def _gather_native(comm, x, *, root_lane=0, root_node=0):
+    topo = comm.topo
+    dst, is_root = _root(topo, root_lane, root_node)
+    m = x.shape[0]
+    out = x.new_zeros((topo.p() * m, *x.shape[1:]))
+    dist.gather(x.contiguous(), list(out.split(m)) if is_root else None,
+                dst=dst, group=topo.group)
+    return out
+
+
+@register_impl("gather", "lane", cost=costs.lane_cost("gather"))
+def _gather_lane(comm, x, *, root_lane=0, root_node=0):
+    return C.gather_lane(x, comm.topo, root_lane=root_lane,
+                         root_node=root_node)
+
+
+@register_impl("scatter", "native", cost=costs.native_cost("scatter"),
+               feasible=_div_p)
+def _scatter_native(comm, x, *, root_lane=0, root_node=0,
+                    root_replicated=True):
+    """One scatter over the whole communicator from the root."""
+    topo = comm.topo
+    p = topo.p()
+    if x.shape[0] % p:
+        raise ValueError(f"leading dim {x.shape[0]} not divisible by p={p}")
+    m = x.shape[0] // p
+    src, is_root = _root(topo, root_lane, root_node)
+    out = x.new_empty((m, *x.shape[1:]))
+    dist.scatter(out, list(x.contiguous().split(m)) if is_root else None,
+                 src=src, group=topo.group)
+    return out
+
+
+@register_impl("scatter", "lane", cost=costs.cost_lane_scatter,
+               feasible=_div_p)
+def _scatter_lane(comm, x, *, root_lane=0, root_node=0,
+                  root_replicated=True):
+    return C.scatter_lane(x, comm.topo, root_lane=root_lane,
+                          root_node=root_node,
+                          root_replicated=root_replicated)
+
+
+# ---------------------------------------------------------------------------
+# grad_sync — the training collective, in place on the gradient leaves
+# ---------------------------------------------------------------------------
+
+def _grad_prep(comm, grads, shard_ways: int, num_buckets: int):
+    """Shared bucketing prologue: resolve K, flatten+pad to K·shard_ways."""
+    total = sum(l.numel() for l in _tree.leaves(grads))
+    K = resolve_num_buckets(total, shard_ways, num_buckets)
+    flat, spec = _flatten_bucket(grads, pad_to=K * shard_ways)
+    return K, flat, spec
+
+
+@register_impl("grad_sync", "native", cost=costs.native_cost("allreduce"))
+def _gs_native(comm, grads, *, num_buckets=0):
+    """One allreduce per leaf, in the leaf's dtype, then the mean."""
+    topo = comm.topo
+    leaves = _tree.leaves(grads)
+    works = [dist.all_reduce(g, group=topo.group, async_op=True)
+             for g in leaves]
+    for w, g in zip(works, leaves):
+        w.wait()
+        g.div_(topo.p())
+    return grads
+
+
+@register_impl("grad_sync", "lane", cost=costs.lane_cost("allreduce"))
+def _gs_lane(comm, grads, *, num_buckets=0):
+    topo = comm.topo
+    K, flat, spec = _grad_prep(comm, grads, topo.n(), num_buckets)
+    bucket_schedule(flat, K, (_rs_node(topo), _ar_lane(topo), _ag_node(topo)))
+    return _unflatten_bucket(flat.div_(topo.p()), spec)
+
+
+@register_impl("grad_sync", "lane_pipelined",
+               cost=costs.cost_pipelined_allreduce)
+def _gs_pipelined(comm, grads, *, num_buckets=0):
+    topo = comm.topo
+    K, flat, spec = _grad_prep(comm, grads, topo.n(), num_buckets)
+    pipelined_allreduce_(flat, topo, num_blocks=K)
+    return _unflatten_bucket(flat.div_(topo.p()), spec)
+
+
+@register_impl("grad_sync", "lane_int8", auto_ok=False)
+def _gs_int8(comm, grads, *, num_buckets=0):
+    """Lossy (int8 lane hop): opt-in only, never auto-selected."""
+    topo = comm.topo
+    K, flat, spec = _grad_prep(comm, grads, topo.n(), num_buckets)
+    bucket_schedule(flat, K, (_rs_node(topo), _ar_lane_int8(topo),
+                              _ag_node(topo)))
+    return _unflatten_bucket(flat.div_(topo.p()), spec)
+
+
+# the replicated train step runs every ported sync: params and moments
+# stay ordinary trees, identical on every rank
+for _s in ("native", "lane", "lane_pipelined", "lane_int8"):
+    register_param_layout(_s, "replicated")
+
+
+def grad_sync_buckets(comm, grads, num_buckets=None) -> int:
+    """The K that ``comm.grad_sync(grads)`` resolves (for reports)."""
+    nb = comm.cfg.buckets if num_buckets is None else num_buckets
+    total = sum(l.numel() for l in _tree.leaves(grads))
+    return resolve_num_buckets(total, comm.topo.n(), nb)
+

@@ -5,8 +5,8 @@ The port's own copy of ``repro.configs.base`` (``ModelConfig``,
 kept field for field so both packages resolve the same numbers.  Every
 arch module registers a ``ModelConfig`` with the published numbers plus a
 reduced ``smoke()`` variant of the same family.  ``RunConfig`` holds only
-the training knobs the port honours so far (``repro``'s has also the
-communication, ZeRO and parallelism knobs, ROADMAP.md Queue 1 items 7-10).
+the training knobs the port honours so far (``repro``'s has also the ZeRO
+and parallelism knobs, ROADMAP.md Queue 1 items 9-10).
 """
 from __future__ import annotations
 
@@ -142,14 +142,17 @@ class RunConfig:
     port honours, validated at construction as ``repro`` validates them.
 
     ``remat``: ``"none"`` | ``"full"`` | ``"dots"`` (the last raises in the
-    forward: not ported).  ``gradsync``: ``"native"`` only; on one process
-    the gradient sync is the identity, and the lane strategies come with
-    ROADMAP.md Queue 1 items 7-8.  ``microbatch``: gradient-accumulation
-    microbatches per step (0 = off).  ``accum_dtype``: their accumulator,
-    ``"float32"`` or ``"bfloat16"``."""
+    forward: not ported).  ``gradsync``: the replicated step's gradient
+    sync, ``"native"``, ``"lane"``, ``"lane_pipelined"`` or
+    ``"lane_int8"``; ``repro``'s other strategies raise, naming their
+    ROADMAP.md items.  ``gradsync_buckets``: the bucket count K of the
+    lane strategies (0 = cost-model auto).  ``microbatch``:
+    gradient-accumulation microbatches per step (0 = off).
+    ``accum_dtype``: their accumulator, ``"float32"`` or ``"bfloat16"``."""
     model: ModelConfig
     remat: str = "none"
     gradsync: str = "native"
+    gradsync_buckets: int = 0
     microbatch: int = 0
     accum_dtype: str = "float32"
 
@@ -164,12 +167,24 @@ class RunConfig:
         if self.microbatch < 0:
             raise ValueError(f"microbatch must be >= 0, got "
                              f"{self.microbatch}")
-        if self.gradsync != "native":
+        # which strategies are ported is the registry's to say
+        from repro_torch.comm.registry import (has_impl, strategies_for,
+                                               unported_item)
+        if self.gradsync == "auto":     # meta: per-call dispatch, tuned
             raise NotImplementedError(
-                f"gradsync={self.gradsync!r} is not ported: the port trains "
-                f"on one process, where only 'native' (the identity) "
-                f"applies; the node/lane collectives and the gradient sync "
-                f"are ROADMAP.md, Queue 1, items 7-8")
+                "gradsync='auto' is not ported yet (ROADMAP.md, Queue 1, "
+                "item 10 (tuning/))")
+        if not has_impl("grad_sync", self.gradsync):
+            item = unported_item("grad_sync", self.gradsync)
+            if item is not None:
+                raise NotImplementedError(
+                    f"gradsync={self.gradsync!r} is not ported yet "
+                    f"({item})")
+            raise ValueError(f"unknown gradsync {self.gradsync!r}; have "
+                             f"{strategies_for('grad_sync')}")
+        if self.gradsync_buckets < 0:
+            raise ValueError(f"gradsync_buckets must be >= 0, got "
+                             f"{self.gradsync_buckets}")
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,214 @@
+"""The process world and its node/lane groups: counterpart of ``repro``'s
+mesh construction (``repro.launch.train.make_mesh_auto`` /
+``_resolve_pods`` and ``repro.launch.mesh``).
+
+``repro`` lays its devices out as a mesh ``(pod, data, model)``; the batch
+is sharded over ``(pod, data)`` and the ``model`` axis replicates it.  The
+port lays its processes out the same way, world rank
+``(pod·d + data)·m + model``, and turns the batch axes into a
+:class:`~repro_torch.core.lane.LaneTopology`: with pods > 1 the node
+level is ``data`` (n = d) and the lane level ``pod`` (N = pods); with one
+pod the topology is ``repro``'s single-batch-axis one, n = 1 and the lane
+level ``data``.  Each ``model`` index gets its own copy of the groups.
+
+  * :func:`init_world` starts the default process group: ``nccl`` for a
+    CUDA device, ``gloo`` for the CPU — chosen by the device asked for,
+    never as a fallback.  Rank and world size come from ``torchrun``'s
+    ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK`` or from the arguments.
+  * :func:`mesh_shape` is ``make_mesh_auto``'s rule, with its messages.
+  * :func:`new_lane_topology` makes every node group and every lane group
+    on every process, in one order (``dist.new_subgroups_by_enumeration``;
+    NCCL hangs otherwise) and returns this process's topology.
+  * :func:`spawn` runs a function on a world of local processes (gloo on
+    the CPU), for tests and the CPU rehearsal of multi-rank training.
+"""
+from __future__ import annotations
+
+import datetime
+import os
+import pathlib
+import tempfile
+
+import torch
+import torch.distributed as dist
+
+from repro_torch._device import resolve_device
+from repro_torch.core.lane import LaneTopology
+
+__all__ = ["init_world", "world_size", "mesh_shape", "resolve_pods",
+           "new_lane_topology", "make_lane_topology", "spawn"]
+
+_TIMEOUT = datetime.timedelta(seconds=300)
+
+
+def world_size() -> int:
+    """Processes in the default group, 1 when there is none."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def init_world(device="cuda", *, rank=None, world_size=None,
+               init_method=None) -> torch.device:
+    """Start the default process group for ``device`` (if it is not
+    started yet) and return the device this process uses: ``cuda:<local
+    rank>`` for CUDA, else ``device``.
+
+    ``rank`` / ``world_size`` default to ``RANK`` / ``WORLD_SIZE`` from
+    the environment (``torchrun``), ``init_method`` to ``env://``.  A CUDA
+    device needs NCCL and raises without it.
+    """
+    dev = resolve_device(device)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if backend == "nccl" and not dist.is_nccl_available():
+        raise RuntimeError(f"device {str(dev)!r} needs the NCCL backend, "
+                           f"which this torch build lacks")
+    if dist.is_initialized():
+        if dist.get_backend() != backend:
+            raise RuntimeError(
+                f"the process group runs {dist.get_backend()!r}, device "
+                f"{str(dev)!r} needs {backend!r}")
+    else:
+        rank = int(os.environ.get("RANK", 0)) if rank is None else rank
+        world = int(os.environ.get("WORLD_SIZE", 1)) \
+            if world_size is None else world_size
+        if dev.type == "cuda":
+            local = int(os.environ.get("LOCAL_RANK",
+                                       rank % torch.cuda.device_count()))
+            dev = torch.device("cuda", local)
+            torch.cuda.set_device(dev)
+        dist.init_process_group(backend, init_method=init_method or "env://",
+                                rank=rank, world_size=world,
+                                timeout=_TIMEOUT)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def resolve_pods(pods: int) -> int:
+    """0 = auto: one pod.  (``repro`` gives ``lane_zero3`` two pods when
+    the devices allow; ZeRO is ROADMAP.md, Queue 1, item 9.)"""
+    return pods or 1
+
+
+def mesh_shape(n: int, batch: int = 1 << 30, pods: int = 1):
+    """``(pods, d, m)`` for ``n`` processes: the widest data axis d that
+    still divides ``batch``, ``repro``'s ``make_mesh_auto`` rule (tp = 1)
+    and its error messages."""
+    pods = max(pods, 1)
+    if n % pods:
+        raise ValueError(f"{n} devices not divisible into {pods} pods")
+    if pods > 1 and batch % pods:
+        raise ValueError(
+            f"global batch {batch} not divisible by the {pods}-pod lane "
+            f"axis; pick a batch divisible by --pods")
+    per = n // pods
+    d = 1
+    while d * 2 <= per and per % (d * 2) == 0 \
+            and batch % (pods * d * 2) == 0:
+        d *= 2
+    return pods, d, per // d
+
+
+def new_lane_topology(n: int, N: int, *, replicas: int = 1) -> LaneTopology:
+    """This process's topology in a world of ``n·N·replicas`` processes,
+    world rank ``(lane_rank·n + node_rank)·replicas + replica``.  Every
+    process must call it, with the same arguments: it creates every node
+    group, then every lane group, then (replicas > 1) every whole
+    communicator, each process taking part in all of them."""
+    p = n * N
+    if world_size() != p * replicas:
+        raise ValueError(f"world of {world_size()} processes, topology "
+                         f"{n}x{N}x{replicas} needs {p * replicas}")
+    w = lambda j, i, k: (j * n + i) * replicas + k
+    node_sets = [[w(j, i, k) for i in range(n)]
+                 for j in range(N) for k in range(replicas)]
+    lane_sets = [[w(j, i, k) for j in range(N)]
+                 for i in range(n) for k in range(replicas)]
+    node_group, _ = dist.new_subgroups_by_enumeration(node_sets)
+    lane_group, _ = dist.new_subgroups_by_enumeration(lane_sets)
+    me = dist.get_rank()
+    g, k = divmod(me, replicas)
+    ranks = [w(0, q, k) for q in range(p)]
+    if replicas > 1:
+        group, _ = dist.new_subgroups_by_enumeration(
+            [[w(0, q, r) for q in range(p)] for r in range(replicas)])
+    else:
+        group = dist.group.WORLD
+    j, i = divmod(g, n)
+    return LaneTopology(
+        n, N, lane_rank=j, node_rank=i, node_group=node_group,
+        lane_group=lane_group, group=group,
+        node_ranks=[w(j, q, k) for q in range(n)],
+        lane_ranks=[w(q, i, k) for q in range(N)], ranks=ranks)
+
+
+def make_lane_topology(batch: int = 1 << 30, pods: int = 1):
+    """(topology, single) for the started world: ``mesh_shape``'s layout,
+    node level ``data`` and lane level ``pod`` when pods > 1; with one pod
+    ``single`` is True and the topology is n = 1, N = d, as ``repro``'s
+    single-batch-axis mesh."""
+    P, d, m = mesh_shape(world_size(), batch, pods)
+    if P > 1:
+        return new_lane_topology(d, P, replicas=m), False
+    return new_lane_topology(1, d, replicas=m), True
+
+
+# ---------------------------------------------------------------------------
+# local worlds: one process per rank on this host
+# ---------------------------------------------------------------------------
+
+def _spawned(rank, world, init_file, device, fn, args, queue):
+    torch.set_num_threads(1)
+    try:
+        init_world(device, rank=rank, world_size=world,
+                   init_method=pathlib.Path(init_file).as_uri())
+        out = fn(*args)
+        dist.barrier()
+        queue.put((rank, out, None))
+    except BaseException as e:  # noqa: BLE001 - reported to the parent
+        queue.put((rank, None, f"{type(e).__name__}: {e}"))
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn(fn, nprocs: int, *args, device="cpu", timeout: float = 600.0):
+    """Run ``fn(*args)`` on ``nprocs`` new local processes that form one
+    world (``init_world(device)``, file rendezvous in a fresh temporary
+    directory) and return their results by rank.  ``fn`` must be
+    importable by module and name, and so must its results be picklable.
+    Each process uses one CPU thread.  Raises if any rank fails or the
+    world does not finish within ``timeout`` seconds; every process is
+    stopped before it returns."""
+    import multiprocessing as mp
+    import queue as queue_mod
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    with tempfile.TemporaryDirectory(prefix="repro_torch_world_") as tmp:
+        init_file = os.path.join(tmp, "rendezvous")
+        procs = [ctx.Process(target=_spawned, daemon=True,
+                             args=(r, nprocs, init_file, device, fn, args, q))
+                 for r in range(nprocs)]
+        for pr in procs:
+            pr.start()
+        results, errors = {}, {}
+        try:
+            while len(results) + len(errors) < nprocs:
+                try:
+                    rank, out, err = q.get(timeout=timeout)
+                except queue_mod.Empty:
+                    raise RuntimeError(
+                        f"world of {nprocs} did not finish within "
+                        f"{timeout} s") from None
+                (errors if err else results)[rank] = err or out
+                if errors:
+                    break
+        finally:
+            for pr in procs:
+                pr.join(timeout=0 if errors else 30)
+                if pr.is_alive():
+                    pr.terminate()
+                    pr.join()
+    if errors:
+        raise RuntimeError(f"rank(s) failed: {errors}")
+    return [results[r] for r in range(nprocs)]

@@ -1,17 +1,18 @@
-"""The replicated train step, on one process.
+"""The replicated train step, on one process or across ranks.
 
 Counterpart of ``repro.launch.steps``' replicated ``train_step`` flavor
 (``_register_replicated``), with its ``_make_loss``, ``_accum_dtype`` and
 ``_microbatched``: value and gradient of ``loss_fn`` (optionally over
-microbatches), then AdamW.  In ``repro`` the step runs under
-``shard_map`` and takes ``pmean`` of the loss over the batch axes and
-``comm.grad_sync(grads, "native")``; on one process both are the identity,
-so the port's step has neither.  ``RunConfig`` refuses every other
-``gradsync``: the node/lane collectives and gradient sync are ROADMAP.md,
-Queue 1, items 7-8.
+microbatches), the gradient sync, then AdamW.  Across ranks the step is
+given a ``LaneComm`` over the world's node/lane topology: it averages
+the loss over the communicator and calls ``comm.grad_sync(grads,
+strategy=eff)`` between the backward and AdamW, with ``eff = "native"``
+on a single batch axis, as ``repro`` does.  On one process (no comm) both
+are the identity and the step has neither.
 
-Forward, backward and optimizer run inside ``torch.profiler``
-annotations (``train_step/forward``, ``train_step/backward``,
+Forward, backward, gradient sync and optimizer run inside
+``torch.profiler`` annotations (``train_step/forward``,
+``train_step/backward``, ``train_step/grad_sync``,
 ``train_step/optimizer``), which cost a few microseconds a step when no
 profiler is on.
 """
@@ -22,6 +23,7 @@ from torch.profiler import record_function
 
 from repro_torch import _tree
 from repro_torch._device import resolve_device
+from repro_torch.comm import LaneComm
 from repro_torch.configs.base import RunConfig
 from repro_torch.models import make_train_step
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
@@ -82,20 +84,33 @@ def _microbatched(vg, mb: int, accum_dtype: torch.dtype):
     return wrapped
 
 
-def build_train_step(run: RunConfig, opt: AdamWConfig):
+def build_train_step(run: RunConfig, opt: AdamWConfig,
+                     comm: "LaneComm | None" = None, *, single: bool = True):
     """``step(params, opt_state, tokens, labels, extra=None) -> (loss,
     params, opt_state)``; ``params`` and ``opt_state`` come from
     ``init_train_state`` and are updated in place.  ``extra``: the vlm
-    patches or audio frames of the batch, or None."""
+    patches or audio frames of the batch, or None.
+
+    ``comm``: None on one process; across ranks, the ``LaneComm`` of the
+    world's topology (``launch.mesh.make_lane_topology``), each rank
+    passing its own rows of the global batch.  ``single``: the topology
+    has one batch axis, where every strategy degrades to ``"native"``."""
     vg = _microbatched(_value_and_grad(_make_loss(run)), run.microbatch,
                        _accum_dtype(run))
+    eff = "native" if single else run.gradsync
 
     def step(params, opt_state, tokens, labels, extra=None):
         loss, grads = vg(params, tokens, labels, extra)
+        if comm is not None:
+            with record_function("train_step/grad_sync"):
+                loss = comm.allreduce(loss.reshape(1), strategy="native"
+                                      )[0] / comm.topo.p()
+                grads = comm.grad_sync(grads, strategy=eff)
         with record_function("train_step/optimizer"):
             params, opt_state = adamw_update(opt, grads, opt_state, params)
         return loss, params, opt_state
     return step
+
 
 
 def init_train_state(params, *, device="cuda"):

@@ -1,31 +1,48 @@
-"""The training loop, on one process: ``main(argv) -> losses``.
+"""The training loop: ``main(argv) -> losses``, on one process or across
+ranks.
 
-Counterpart of ``repro.launch.train`` on one process with ``--gradsync
-native``: resolve the arch, build the replicated step (``launch.steps``),
-initialise the weights from ``--seed`` on ``--device``, and take
-``--steps`` AdamW steps over ``SyntheticLM`` batches of ``--batch`` rows
-of ``--seq`` tokens from ``make_loader``, logging as ``repro`` logs.
+Counterpart of ``repro.launch.train``: resolve the arch, build the
+replicated step (``launch.steps``), initialise the weights from
+``--seed`` on ``--device``, and take ``--steps`` AdamW steps over
+``SyntheticLM`` batches of ``--batch`` rows of ``--seq`` tokens from
+``make_loader``, logging as ``repro`` logs.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \\
       --smoke --steps 3 --batch 4 --seq 32 --device cpu
 
-The rest of ``repro``'s training loop is not ported yet.  Each of its flags is
-accepted and raises, naming its ROADMAP.md item, when it is set away from
-its default: checkpointing (item 9), the lane gradient syncs and ZeRO
-(items 7-9), tensor and expert parallelism, fault injection, elastic
-restarts and tuning (item 10).  Nothing is ignored silently.
+Across ranks it runs under ``torchrun`` (or any started process group):
+``launch.mesh`` lays the world out as ``repro``'s ``(pod, data, model)``
+mesh, each rank takes its rows of the global batch in ``repro``'s
+sharding order (pod-major, global rank ``lane_rank·n + node_rank``), and
+the step syncs the gradients with ``--gradsync`` (``native``, ``lane``,
+``lane_pipelined`` or ``lane_int8``) over ``--gradsync-buckets`` buckets:
+
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch llama3.2-3b --smoke --gradsync lane --pods 2 --device cpu
+
+The rest of ``repro``'s training loop is not ported yet.  Each of its flags
+is accepted and raises, naming its ROADMAP.md item, when it is set away
+from its default: checkpointing and ZeRO (item 9), tensor and expert
+parallelism, fault injection, elastic restarts and tuning (item 10).
+Nothing is ignored silently.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
+import os
 import sys
 import time
 
 import torch
+import torch.distributed as dist
 
+from repro_torch import _tree
 from repro_torch._device import resolve_device
+from repro_torch.comm import CommConfig, LaneComm
 from repro_torch.configs import RunConfig, resolve
 from repro_torch.data import make_loader
+from repro_torch.launch import mesh
 from repro_torch.launch.steps import build_train_step, init_train_state
 from repro_torch.models import init_model
 from repro_torch.optim import AdamWConfig
@@ -35,7 +52,6 @@ _ITEM = "ROADMAP.md, Queue 1, item"
 UNPORTED = {
     "ckpt": ("", f"{_ITEM} 9 (checkpoint/)"),
     "ckpt_every": (50, f"{_ITEM} 9 (checkpoint/)"),
-    "gradsync_buckets": (0, f"{_ITEM} 8 (gradient sync)"),
     "fsdp_prefetch": (0, f"{_ITEM} 9 (ZeRO)"),
     "fsdp_regather": (False, f"{_ITEM} 9 (ZeRO)"),
     "model_parallel": (1, f"{_ITEM} 10 (TP/EP)"),
@@ -70,9 +86,13 @@ def _parser() -> argparse.ArgumentParser:
                     choices=("float32", "bfloat16"),
                     help="microbatch gradient accumulator precision")
     ap.add_argument("--gradsync", default="native",
-                    help="native only (the identity on one process)")
+                    help="gradient sync across ranks: native, lane, "
+                         "lane_pipelined or lane_int8 (repro's other "
+                         "strategies raise, naming their items)")
+    ap.add_argument("--gradsync-buckets", type=int, default=0,
+                    help="bucket count K; 0 = cost-model auto")
     ap.add_argument("--pods", type=int, default=0,
-                    help="0 or 1: one process, no lane axis")
+                    help="pod (lane) axis size; 0 = auto (1)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     for name, (default, _) in UNPORTED.items():
@@ -90,48 +110,96 @@ def _refuse_unported(args) -> None:
         if getattr(args, name) != default:
             raise NotImplementedError(
                 f"--{name.replace('_', '-')} is not ported yet ({item})")
-    if args.pods > 1:
-        raise NotImplementedError(
-            f"--pods {args.pods}: the lane (pod) axis needs the node/lane "
-            f"collectives, {_ITEM} 7")
 
 
-def main(argv=None) -> list:
-    """Train and return every step's loss (floats).  The log lines and the
-    closing loss check are ``repro``'s."""
+def _multi_rank() -> bool:
+    """A process group is started, or ``torchrun`` asks for one."""
+    return dist.is_initialized() \
+        or int(os.environ.get("WORLD_SIZE", "1")) > 1
+
+
+def run(argv=None, *, params=None):
+    """Train; returns (every step's loss as floats, params, opt_state).
+    ``params``: the initial weights (the port's tree, e.g. from
+    ``bridge.params_from_repro``); default ``init_model`` from ``--seed``.
+    The log lines and the closing loss check are ``repro``'s, printed by
+    world rank 0."""
     args = _parser().parse_args(argv)
     _refuse_unported(args)
-    dev = resolve_device(args.device)
     cfg = resolve(args.arch, smoke=args.smoke)
-    run = RunConfig(model=cfg, remat=args.remat, gradsync=args.gradsync,
-                    microbatch=args.microbatch, accum_dtype=args.accum_dtype)
+    run_cfg = RunConfig(model=cfg, remat=args.remat, gradsync=args.gradsync,
+                        gradsync_buckets=args.gradsync_buckets,
+                        microbatch=args.microbatch,
+                        accum_dtype=args.accum_dtype)
+    pods = mesh.resolve_pods(args.pods)
+    owns_world = False
+    if _multi_rank():
+        owns_world = not dist.is_initialized()
+        dev = mesh.init_world(args.device)
+        topo, single = mesh.make_lane_topology(args.batch, pods)
+        comm = LaneComm(topo, CommConfig.from_run(run_cfg))
+        rows = args.batch // topo.p()
+        row0 = topo.global_rank() * rows
+        lead = dist.get_rank() == 0
+    else:
+        mesh.mesh_shape(1, args.batch, pods)     # repro's rules, one device
+        dev = resolve_device(args.device)
+        comm, single, row0, rows, lead = None, True, 0, args.batch, True
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps // 5),
                           total_steps=args.steps)
-    step = build_train_step(run, opt_cfg)
-    params, opt_state = init_train_state(
-        init_model(cfg, seed=args.seed, device=dev), device=dev)
+    step = build_train_step(run_cfg, opt_cfg, comm, single=single)
+    if params is None:
+        params = init_model(cfg, seed=args.seed, device=dev)
+    params, opt_state = init_train_state(params, device=dev)
     loader = make_loader(cfg, args.seq, args.batch, seed=args.seed)
 
     t0 = time.time()
     losses, logged = [], []
-    for s in range(args.steps):
-        toks, labels = loader.batch_at(s)
-        loss, params, opt_state = step(
-            params, opt_state, torch.as_tensor(toks, device=dev),
-            torch.as_tensor(labels, device=dev))
-        losses.append(loss)
-        if s % args.log_every == 0 or s == args.steps - 1:
-            lv = float(loss)
-            logged.append(lv)
-            tps = (s + 1) * args.batch * args.seq / (time.time() - t0)
-            print(f"step {s:5d}  loss {lv:8.4f}  tok/s {tps:9.0f}",
-                  flush=True)
-    if len(logged) >= 2 and logged[-1] >= logged[0]:
+    try:
+        for s in range(args.steps):
+            toks, labels = loader.batch_slice(s, row0, rows)
+            loss, params, opt_state = step(
+                params, opt_state, torch.as_tensor(toks, device=dev),
+                torch.as_tensor(labels, device=dev))
+            losses.append(loss)
+            if s % args.log_every == 0 or s == args.steps - 1:
+                lv = float(loss)
+                logged.append(lv)
+                tps = (s + 1) * args.batch * args.seq / (time.time() - t0)
+                if lead:
+                    print(f"step {s:5d}  loss {lv:8.4f}  tok/s {tps:9.0f}",
+                          flush=True)
+    finally:
+        if owns_world:
+            dist.destroy_process_group()
+    if lead and len(logged) >= 2 and logged[-1] >= logged[0]:
         print(f"WARNING: loss did not decrease ({logged[0]:.3f} → "
               f"{logged[-1]:.3f})")
-    elif logged:
+    elif lead and logged:
         print(f"loss {logged[0]:.4f} → {logged[-1]:.4f}  OK")
-    return [float(x) for x in losses]
+    return [float(x) for x in losses], params, opt_state
+
+
+def main(argv=None) -> list:
+    """Train and return every step's loss (floats); see ``run``."""
+    return run(argv)[0]
+
+
+def params_digest(params) -> str:
+    """sha256 of every parameter's bytes, in tree order: equal across
+    ranks iff the replicas are bitwise equal."""
+    h = hashlib.sha256()
+    for leaf in _tree.leaves(params):
+        t = leaf.detach().cpu().contiguous()
+        h.update(t.view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def rank_worker(argv):
+    """One rank of a ``mesh.spawn`` world: train with ``argv`` and return
+    (losses, params_digest)."""
+    losses, params, _ = run(argv)
+    return losses, params_digest(params)
 
 
 if __name__ == "__main__":

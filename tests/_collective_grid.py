@@ -1,0 +1,102 @@
+"""The conformance grid the port's collectives and ``repro``'s are both run
+on (``tests/test_torch_collectives.py``): every lane, native and
+pipelined cell × five topologies × f32/bf16/int32 × odd rows per rank,
+non-default roots, the unreplicated-root paths and the divisibility
+errors.  numpy only: the ``repro`` side (``_repro_lane_side.py``) and the
+port's ranks (``_torch_dist_workers.py``) import it, and neither may
+import the other's framework.
+
+Payloads are integer-valued in every dtype, so every sum is exact and
+the two packages must agree bit for bit.
+"""
+import numpy as np
+
+# name: (n, N) — repro's conformance topologies (repro.testing.
+# conformance_cases.TOPOS); t3 and het have a two-axis node level that
+# the port holds as one node group
+TOPOS = {"t2": (2, 4), "t3": (4, 2), "het": (4, 2), "n1": (1, 8),
+         "N1": (8, 1)}
+P = 8
+DTYPES = ("f32", "bf16", "int32")
+BLOCKS = 3                 # num_blocks of the pipelined cells
+
+# collective -> rows per rank, as a function of (n, p): odd multiples of
+# the divisibility each mock-up needs
+_ROWS = {
+    "allreduce": lambda n, p: 3 * n, "bcast": lambda n, p: 3 * n,
+    "reduce": lambda n, p: 3 * n, "scan": lambda n, p: 3 * n,
+    "reduce_scatter": lambda n, p: 3 * p, "alltoall": lambda n, p: 3 * p,
+    "scatter": lambda n, p: 3 * p,
+    "allgather": lambda n, p: 3, "gather": lambda n, p: 3,
+}
+ROOTED = ("bcast", "reduce", "gather", "scatter")
+
+# (collective, rows) that must raise ValueError on the given topology
+ERRORS = [("t2", "allreduce", 3), ("t2", "alltoall", 12),
+          ("t2", "scatter", 12), ("t2", "reduce_scatter", 12),
+          ("t3", "bcast", 3), ("t3", "scan", 5)]
+
+
+def cases(topo_key):
+    """[{name, coll, strategy, dtype, rows, kw, root}], ``root`` the global
+    rank whose buffer a rooted case reads (None otherwise), ``replicate``
+    the lane whose node holds one buffer replicated (or None)."""
+    n, N = TOPOS[topo_key]
+    p = n * N
+    out = []
+
+    def add(coll, strategy, dt, rows, kw=None, root=None, replicate=None,
+            tag=""):
+        out.append(dict(name=f"{coll}.{strategy}{tag}.{dt}", coll=coll,
+                        strategy=strategy, dtype=dt, rows=rows,
+                        kw=dict(kw or {}), root=root, replicate=replicate))
+
+    for dt in DTYPES:
+        for coll, rows in _ROWS.items():
+            for strategy in ("lane", "native"):
+                rep = 0 if coll in ("bcast", "scatter") else None
+                add(coll, strategy, dt, rows(n, p),
+                    root=0 if coll in ROOTED else None, replicate=rep)
+        add("allreduce", "lane_pipelined", dt, 3 * BLOCKS * n,
+            kw={"num_blocks": BLOCKS})
+        add("bcast", "lane_pipelined", dt, 3 * BLOCKS * n,
+            kw={"num_blocks": BLOCKS}, root=0, replicate=0)
+        add("reduce", "lane_pipelined", dt, 3 * BLOCKS * n,
+            kw={"num_blocks": BLOCKS}, root=0)
+        # core.pipeline's ZeRO-3 prefetch gather, called directly (its
+        # LaneComm cell, prefetch_allgather, is ROADMAP item 9)
+        add("pipelined_allgather", "core", dt, 3 * BLOCKS,
+            kw={"num_blocks": BLOCKS})
+    # non-default roots: the last lane and the last node rank
+    rl, rn = N - 1, n - 1
+    for coll in ROOTED:
+        for strategy in ("lane", "native"):
+            kw = {"root_lane": rl, "root_node": rn}
+            add(coll, strategy, "f32", _ROWS[coll](n, p), kw=kw,
+                root=rl * n + rn,
+                replicate=rl if coll in ("bcast", "scatter") else None,
+                tag=f".root{rl}{rn}")
+    # the unreplicated root: the root scatters over its node
+    for coll in ("bcast", "scatter"):
+        add(coll, "lane", "f32", _ROWS[coll](n, p),
+            kw={"root_lane": rl, "root_node": rn, "root_replicated": False},
+            root=rl * n + rn, tag=".unreplicated")
+    add("allgather", "lane", "f32", 3, kw={"reorder": False},
+        tag=".noreorder")
+    return out
+
+
+def payload(case, n, N, seed):
+    """(p, rows, 2) per-rank inputs, integer-valued, as float32 (f32 and
+    bf16) or int32; a replicated root node holds one buffer."""
+    rng = np.random.default_rng(seed)
+    xs = rng.integers(-4, 5, size=(n * N, case["rows"], 2))
+    xs = xs.astype(np.int32 if case["dtype"] == "int32" else np.float32)
+    if case["replicate"] is not None:
+        base = case["replicate"] * n
+        xs[base:base + n] = xs[base]
+    return xs
+
+
+def seed_of(topo_key, index):
+    return 1000 * list(TOPOS).index(topo_key) + index

@@ -1,0 +1,133 @@
+"""``repro``'s side of the port's multi-rank tests, run in a subprocess
+whose own environment sets ``XLA_FLAGS=--xla_force_host_platform_device_
+count=<devices>`` (the test process never sets it).
+
+  python tests/_repro_lane_side.py collectives OUT.npz   # 8 devices
+  python tests/_repro_lane_side.py gradsync IN.npz OUT.npz   # 4 devices
+  python tests/_repro_lane_side.py train OUT.json ARGV...    # 4 devices
+
+``collectives`` runs every case of ``_collective_grid`` through
+``repro``'s LaneComm on repro's own conformance meshes; ``gradsync``
+runs ``LaneComm.grad_sync`` on a (pod 2 × data 2) mesh over the per-rank
+gradient trees in IN.npz; ``train`` runs ``repro.launch.train.main``
+with ARGV for each ``--arch`` given and records every step's loss at
+full precision (its log lines print 4 decimals).
+"""
+import builtins
+import json
+import pathlib
+import sys
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1] / "src"))
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
+
+import numpy as np  # noqa: E402
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from jax.sharding import NamedSharding, PartitionSpec as P  # noqa: E402
+
+import repro  # noqa: E402,F401  (installs the compat shims)
+from repro.comm import CommConfig, LaneComm  # noqa: E402
+from repro.core import LaneTopology  # noqa: E402
+from repro.core.pipeline import pipelined_allgather_lane  # noqa: E402
+from repro.testing.conformance_cases import TOPOS as MESHES  # noqa: E402
+
+import _collective_grid as grid  # noqa: E402
+
+DT = {"f32": jnp.float32, "bf16": jnp.bfloat16, "int32": jnp.int32}
+
+
+def _call(comm, topo, case):
+    def fn(x):
+        if case["coll"] == "pipelined_allgather":
+            return pipelined_allgather_lane(x, topo, **case["kw"])
+        return getattr(comm, case["coll"])(x, strategy=case["strategy"],
+                                           **case["kw"])
+    return fn
+
+
+def collectives(out_path):
+    out = {}
+    for key in grid.TOPOS:
+        shape, names, node_axes, lane = MESHES[key]
+        mesh = jax.make_mesh(shape, names)
+        topo = LaneTopology(node_axes=node_axes, lane_axis=lane)
+        comm = LaneComm(topo, mesh=mesh)
+        spec = P((lane, *node_axes))
+        sharding = NamedSharding(mesh, spec)
+        n, N = grid.TOPOS[key]
+        p = n * N
+        cases = grid.cases(key)
+        for dt in grid.DTYPES:
+            idx = [k for k, c in enumerate(cases) if c["dtype"] == dt]
+            xs = [grid.payload(cases[k], n, N, grid.seed_of(key, k))
+                  for k in idx]
+            fns = [_call(comm, topo, cases[k]) for k in idx]
+            args = [jax.device_put(jnp.asarray(
+                x.reshape(p * x.shape[1], *x.shape[2:]), DT[dt]), sharding)
+                for x in xs]
+            run = jax.jit(jax.shard_map(
+                lambda *a: tuple(f(x) for f, x in zip(fns, a)), mesh=mesh,
+                in_specs=tuple(spec for _ in idx),
+                out_specs=tuple(spec for _ in idx)))
+            for k, x, y in zip(idx, xs, run(*args)):
+                y = np.asarray(y).astype(x.dtype)
+                out[f"{key}/{cases[k]['name']}"] = y.reshape(
+                    p, y.shape[0] // p, *y.shape[1:])
+    np.savez(out_path, **out)
+
+
+def gradsync(in_path, out_path):
+    mesh = jax.make_mesh((2, 2), ("pod", "data"))
+    topo = LaneTopology(node_axes=("data",), lane_axis="pod")
+    spec = P(("pod", "data"))
+    sharding = NamedSharding(mesh, spec)
+    out = {}
+    with np.load(in_path) as z:
+        trees = {}
+        for key in z.files:                  # payload/leaf, stacked (p, ...)
+            name, leaf = key.split("/")
+            trees.setdefault(name, {})[leaf] = z[key]
+    for name, tree in trees.items():
+        for strategy in ("native", "lane", "lane_pipelined", "lane_int8"):
+            comm = LaneComm(topo, CommConfig(buckets=3), mesh=mesh)
+
+            def fn(t, comm=comm, strategy=strategy):
+                t = jax.tree.map(lambda a: a[0], t)
+                g = comm.grad_sync(t, strategy=strategy)
+                return jax.tree.map(lambda a: a[None], g)
+            args = jax.tree.map(
+                lambda a: jax.device_put(jnp.asarray(a), sharding), tree)
+            res = jax.jit(jax.shard_map(fn, mesh=mesh, in_specs=(spec,),
+                                        out_specs=spec))(args)
+            for leaf, v in res.items():
+                out[f"{name}/{strategy}/{leaf}"] = np.asarray(v)
+    np.savez(out_path, **out)
+
+
+def train(out_path, argv):
+    import repro.launch.train as jtrain
+    archs = [argv[i + 1] for i, a in enumerate(argv) if a == "--arch"]
+    rest = [a for i, a in enumerate(argv)
+            if a != "--arch" and (i == 0 or argv[i - 1] != "--arch")]
+    losses = {}
+    for arch in archs:
+        got = []
+
+        def record(x, got=got):     # train.py's only float(): the loss
+            got.append(builtins.float(x))
+            return got[-1]
+        jtrain.float = record
+        jtrain.main(["--arch", arch, *rest, "--log-every", "1"])
+        losses[arch] = got
+    pathlib.Path(out_path).write_text(json.dumps(losses))
+
+
+if __name__ == "__main__":
+    cmd, *rest = sys.argv[1:]
+    if cmd == "collectives":
+        collectives(*rest)
+    elif cmd == "gradsync":
+        gradsync(*rest)
+    else:
+        train(rest[0], rest[1:])

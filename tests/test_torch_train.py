@@ -338,9 +338,16 @@ def test_remat_dots_and_gradsync_name_their_items(zoo):
         RunConfig(model=tc, remat="some")
     with pytest.raises(ValueError, match="accum_dtype"):
         RunConfig(model=tc, accum_dtype="float16")
-    for strategy in ("lane", "lane_zero3", "auto"):
-        with pytest.raises(NotImplementedError, match="items 7-8"):
+    for strategy, item in (("lane_zero1", "item 9"),
+                           ("lane_zero3", "item 9"),
+                           ("lane_quorum", "item 10"), ("auto", "item 10")):
+        with pytest.raises(NotImplementedError, match=item):
             RunConfig(model=tc, gradsync=strategy)
+    with pytest.raises(ValueError, match="unknown gradsync"):
+        RunConfig(model=tc, gradsync="lane_zero9")
+    for strategy in ("native", "lane", "lane_pipelined", "lane_int8"):
+        assert RunConfig(model=tc, gradsync=strategy,
+                         gradsync_buckets=4).gradsync == strategy
 
 
 # ---------------------------------------------------------------------------
@@ -378,11 +385,11 @@ def test_train_main_microbatch_and_remat_on_cpu():
     (["--lose-chips", "1"], "item 10"),
     (["--quorum-staleness", "3"], "item 10"),
     (["--max-restarts", "0"], "item 10"),
-    (["--gradsync-buckets", "4"], "item 8"),
+    (["--gradsync", "lane_zero3"], "item 9"),
     (["--fsdp-prefetch", "2"], "item 9"),
     (["--fsdp-regather"], "item 9"),
-    (["--gradsync", "lane"], "items 7-8"),
-    (["--pods", "2"], "item 7"),
+    (["--gradsync", "lane_quorum"], "item 10"),
+    (["--gradsync", "lane_zero1"], "item 9"),
     (["--remat", "dots"], "item 6"),
 ])
 def test_train_main_unported_flags_raise(flags, item):
@@ -390,3 +397,13 @@ def test_train_main_unported_flags_raise(flags, item):
         train.main(["--arch", "llama3.2-3b", "--smoke", "--steps", "1",
                     "--batch", "2", "--seq", "8", "--device", "cpu",
                     *flags])
+
+
+def test_train_main_pods_in_one_process_raises_repros_error():
+    """A world of one process has one device: ``repro``'s
+    ``make_mesh_auto`` message."""
+    with pytest.raises(ValueError,
+                       match="1 devices not divisible into 2 pods"):
+        train.main(["--arch", "llama3.2-3b", "--smoke", "--steps", "1",
+                    "--batch", "2", "--seq", "8", "--device", "cpu",
+                    "--pods", "2"])
