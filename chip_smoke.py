@@ -110,7 +110,30 @@ and the script exits non-zero:
      (d) on the CPU with gloo, not the card: 4 spawned ranks (2 pods x 2)
      train llama3.2-3b --smoke 3 steps with --gradsync lane
      --gradsync-buckets 4; the losses equal the one-process run's within
-     1e-6 and the parameters are bitwise equal across ranks.
+     1e-6 and the parameters are bitwise equal across ranks;
+  9. ZeRO training (``launch/steps.py``'s ZeRO steps, ``models/
+     blockstack.py``, ``optim/gradsync.py``'s shard layouts) on phase 8's
+     one-rank NCCL world, built with ``single=False`` on its 1 x 1
+     topology: the code every rank of a multi-pod world runs, with node
+     and lane groups of one process (before 8d):
+     (a) llama3.2-3b and mamba2-780m at full width cut to 2 layers, f32,
+     1 x 256 tokens, 3 steps each of lane_zero1, lane_zero3 (prefetch),
+     --fsdp-regather and --fsdp-prefetch -1 on the card against
+     lane_zero3 on the CPU (a gloo group of the same rank):
+     every loss within 1e-5, the parameters after the last step within
+     1e-3 lr at all but 1% of the elements;
+     (b) 5 bf16 steps at full width, 4 x 1024 tokens, AdamW unclipped:
+     llama3.2-3b replicated (native), lane_zero1, lane_zero3 (prefetch),
+     regather and blocking, and mamba2-780m replicated and lane_zero3,
+     with the witness "masters" (the replicated step with f32 master
+     weights) for each: step ms, peak memory beside the replicated
+     step's, layer gathers and K1/K2 launches per step (each checked: L
+     per step, 2L under regather), step 1's loss equal to the replicated
+     step's and the replicated's to phase 7c's first, steps 2-5 equal to
+     the replicated step's for lane_zero1, to "masters"' for lane_zero3
+     and to lane_zero3's for its other modes (see ZERO_GATE); a layout
+     that does not fit prints its OOM, and then every run goes again at
+     --microbatch 2, where an OOM fails the phase.
 
 Both kernels choose by dtype inside their C entry point: bf16 (the
 serving and training paths) runs on the tensor cores, f32 on the CUDA
@@ -155,11 +178,12 @@ from repro_torch.serve.sampling import sample_token  # noqa: E402
 from repro_torch.serve.engine import DEFAULT_BUCKETS  # noqa: E402
 from repro_torch.launch import mesh, steps, train  # noqa: E402
 from repro_torch.launch.steps import init_train_state  # noqa: E402
-from repro_torch.optim import AdamWConfig, adamw_update  # noqa: E402
+from repro_torch.optim import AdamWConfig, adamw_init, adamw_update  # noqa: E402
 from repro_torch.optim import gradsync  # noqa: E402
 from repro_torch.comm import CommConfig, LaneComm  # noqa: E402
 from repro_torch.comm.impls import grad_sync_buckets  # noqa: E402
 from repro_torch.core import ref as oracles  # noqa: E402
+from repro_torch.core.lane import LaneTopology  # noqa: E402
 from repro_torch.core.pipeline import pipelined_allgather_lane  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
@@ -1406,6 +1430,7 @@ class StepClock:
                 if len(self.seconds) == self.trace_at + 1:
                     self.prof.__exit__(None, None, None)
                 return out
+            timed_step.full_params = step.full_params
             return timed_step
         train.build_train_step = build
         return self
@@ -1474,7 +1499,7 @@ def phase_train(cfg, name) -> dict:
           f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16 dense peak; {name})",
           flush=True)
     report_traced_step(cfg, name, clock)
-    return launches
+    return launches, losses
 
 
 ANNOTATIONS = ("train_step/forward", "train_step/backward",
@@ -1776,7 +1801,7 @@ def check_int8(topo, grads, ref_leaves, K):
         raise RuntimeError(f"lane_int8: dequantized values past the half "
                            f"step ({deq_worst:.6f} of it)")
     ofs, bad = 0, 0
-    for g in _tree.leaves(grads):
+    for g in _tree.leaves(grads):   # the flat buffer's order
         want = flat_x[ofs:ofs + g.numel()].view(g.shape).to(g.dtype)
         bad += int((g != want).sum())
         ofs += g.numel()
@@ -1812,16 +1837,295 @@ def phase_lane_cpu() -> None:
         f"equal on every rank")
 
 
-def phase_lanes(name) -> dict:
+def phase_lanes(name, first_loss) -> dict:
+    """Phases 8 and 9 on one NCCL world (8d on the CPU after it)."""
     topo, init = timed("8a lane world", phase_lane_world)
     try:
         timed("8b lane conformance", phase_lane_conformance, topo)
         launches = timed("8c gradient sync", phase_lane_gradsync, topo, name)
+        with torch.enable_grad():
+            timed("9a ZeRO card vs CPU", phase_zero_check, topo)
+            launches.update(timed("9b ZeRO at full width", phase_zero_train,
+                                  topo, name, first_loss))
     finally:
         dist.destroy_process_group()
         init.unlink(missing_ok=True)
     with torch.enable_grad():
         timed("8d cpu gloo train", phase_lane_cpu)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 9: ZeRO training (lane_zero1, lane_zero3) on the one-rank world
+# ---------------------------------------------------------------------------
+
+# mode: (gradsync, fsdp_prefetch, fsdp_regather)
+ZERO_MODES = {"replicated": ("native", 0, False),
+              "lane_zero1": ("lane_zero1", 0, False),
+              "lane_zero3": ("lane_zero3", 0, False),
+              "regather": ("lane_zero3", 0, True),
+              "blocking": ("lane_zero3", -1, False)}
+ZERO_CHECK_STEPS = 3
+# 9b: 5 bf16 steps at 4 x 1024 tokens, AdamW with no clipping (the clip
+# norm is still computed): the one rounding that tells the layouts
+# apart is the clip norm's sum, taken in another order by each (PERF.md
+# §6: with the clip, mamba2-780m's lane_zero3 and "masters" part by
+# 2.1e-4 at step 2 and 1.0e-2 at step 5; without it, every pair below
+# is equal), and the clip's arithmetic is held card against CPU in 9a.
+# Step 1 of every run equals its replicated step's exactly (the same
+# bf16 weights through the same forward) and phase 7c's first loss.
+# Each run's steps 2-5 must equal those of the run ZERO_GATE names,
+# whose parameters round to bf16 the same way: lane_zero1 the replicated
+# step's (both update the bf16 weights), lane_zero3 those of "masters",
+# and regather and blocking lane_zero3's.  "masters" is the witness for
+# lane_zero3's f32 masters that shares none of the ZeRO code
+# (masters_step): the replicated step's bf16 forward and backward with
+# AdamW on f32 copies of the parameters.  It equals the replicated step
+# at step 2 only: its first update, cast to bf16, is the replicated
+# step's rounded update; from then on the masters keep the updates below
+# half a bf16 ulp that the replicated bf16 parameters drop, and from
+# this init the loss moves erratically (103 -> 70 -> 227 -> 1635), so
+# the two part by up to 2x (printed).  Each run's references come
+# before it in ZERO_RUNS.
+ZERO_STEPS = 5
+ZERO_RUNS = (("llama3.2-3b", "replicated"), ("llama3.2-3b", "lane_zero1"),
+             ("llama3.2-3b", "masters"), ("llama3.2-3b", "lane_zero3"),
+             ("llama3.2-3b", "regather"), ("llama3.2-3b", "blocking"),
+             ("mamba2-780m", "replicated"), ("mamba2-780m", "masters"),
+             ("mamba2-780m", "lane_zero3"))
+# the run each mode's steps 2-5 are held to, and how many of them
+ZERO_GATE = {"lane_zero1": ("replicated", ZERO_STEPS),
+             "masters": ("replicated", 2),
+             "lane_zero3": ("masters", ZERO_STEPS),
+             "regather": ("lane_zero3", ZERO_STEPS),
+             "blocking": ("lane_zero3", ZERO_STEPS)}
+
+
+def masters_step(cfg, opt, params, microbatch=0):
+    """(step, state, opt_state) of the witness "masters": the replicated
+    step's bf16 forward and backward (its microbatching included), then
+    ``optim.adamw_update`` on f32 master copies of the parameters, which
+    are then cast into the bf16 parameters, as lane_zero3 casts its f32
+    masters into the rows it gathers.  No sharding, gather, transpose or
+    flat AdamW."""
+    run = RunConfig(model=cfg, microbatch=microbatch)
+    vg = steps._microbatched(steps._value_and_grad(steps._make_loss(run)),
+                             run.microbatch, steps._accum_dtype(run))
+    masters = _tree.tree_map(lambda p: p.detach().float(), params)
+    params = _tree.tree_map(lambda p: p.requires_grad_(True), params)
+
+    def step(params, opt_state, tokens, labels):
+        loss, grads = vg(params, tokens, labels, None)
+        with torch.no_grad():
+            adamw_update(opt, grads, opt_state, masters)
+            for p, m in zip(_tree.leaves(params), _tree.leaves(masters)):
+                p.copy_(m)
+        return loss, params, opt_state
+    step.full_params = lambda params: params
+    return step, params, adamw_init(masters)
+
+
+def zero_run(cfg, mode, topo, params, *, steps_n, batch, seq, device, opt,
+             microbatch=0, full=True):
+    """``steps_n`` steps of ``cfg`` in ``mode`` through
+    ``launch.steps.build_train_step`` / ``init_lane_train_state`` with
+    ``single=False`` on ``topo`` (the code the ranks of a multi-pod world
+    run), from ``params`` (moved to ``device``), on SyntheticLM seed 0
+    batches: (losses, step seconds each synchronised, the whole parameter
+    tree after the last step (None unless ``full``), layer gathers)."""
+    if mode == "masters":
+        step, state, opt_state = masters_step(cfg, opt, params, microbatch)
+    else:
+        gradsync, pre, regather = ZERO_MODES[mode]
+        run = RunConfig(model=cfg, gradsync=gradsync, fsdp_prefetch=pre,
+                        fsdp_regather=regather, microbatch=microbatch)
+        comm = LaneComm(topo, CommConfig.from_run(run))
+        step = steps.build_train_step(run, opt, comm, single=False)
+        state, opt_state = steps.init_lane_train_state(run, params, comm,
+                                                       single=False,
+                                                       device=device)
+    del params
+    loader = make_loader(cfg, seq, batch, seed=0)
+    gathers = getattr(step, "gathers", None)
+    g0 = gathers[0].gathers if gathers else 0
+    losses, seconds = [], []
+    for s in range(steps_n):
+        toks, labels = (torch.as_tensor(a, device=device)
+                        for a in loader.batch_at(s))
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, state, opt_state = step(state, opt_state, toks, labels)
+        losses.append(float(loss))
+        seconds.append(time.perf_counter() - t0)
+    layer_gathers = (gathers[0].gathers - g0) if gathers else 0
+    full = step.full_params(state) if full else None
+    del state, opt_state
+    return losses, seconds, full, layer_gathers
+
+
+def phase_zero_check(topo) -> None:
+    """9a: llama3.2-3b and mamba2-780m at full width cut to CHECK_LAYERS
+    layers, f32, 1 x CHECK_T tokens, ZERO_CHECK_STEPS steps of
+    lane_zero1, lane_zero3 (prefetch), --fsdp-regather and
+    --fsdp-prefetch -1 on the card (NCCL, one rank) against the same
+    steps on the CPU (a gloo group of the same one rank): every loss
+    within CARD_LOSS_TOL, and the parameters after the last step within
+    UPDATE_TOL x lr of the CPU's at all but FLIP_SHARE of the elements.
+    The CPU runs lane_zero3 once: its modes, and lane_zero1, are the same
+    f32 arithmetic up to the order of the global norm's sum (pinned on
+    the CPU, 4 ranks, by tests/test_torch_train_zero.py)."""
+    cpu_group = dist.new_group([0], backend="gloo")
+    cpu_topo = LaneTopology(1, 1, lane_rank=0, node_rank=0,
+                            node_group=cpu_group, lane_group=cpu_group,
+                            group=cpu_group, node_ranks=[0], lane_ranks=[0],
+                            ranks=[0])
+    opt = AdamWConfig(warmup_steps=0, total_steps=ZERO_CHECK_STEPS)
+    kw = dict(steps_n=ZERO_CHECK_STEPS, batch=1, seq=CHECK_T, opt=opt)
+    for arch in TRAIN_ARCHS:
+        cfg = dataclasses.replace(resolve(arch), num_layers=CHECK_LAYERS,
+                                  dtype="float32")
+        params0 = init_model(cfg, seed=0, device="cpu")
+        before = {p: t.clone() for p, t in _tree.flatten(params0)}
+        t0 = time.perf_counter()
+        want, _, full, _ = zero_run(
+            cfg, "lane_zero3", cpu_topo,
+            _tree.tree_map(torch.clone, params0), device="cpu", **kw)
+        want_p, t_cpu = dict(_tree.flatten(full)), time.perf_counter() - t0
+        del full
+        for mode in ("lane_zero1", "lane_zero3", "regather", "blocking"):
+            fa.launches = k2.launches = 0
+            losses, _, full, gathers = zero_run(
+                cfg, mode, topo, _tree.tree_map(torch.clone, params0),
+                device="cuda", **kw)
+            torch.cuda.synchronize()
+            e_l = max(abs(a - b) / max(abs(b), 1e-12)
+                      for a, b in zip(losses, want))
+            paths = [p for p, _ in _tree.flatten(full)]
+            got_p = dict(_tree.flatten(full))
+            share, worst = _step_err([got_p[p] for p in paths],
+                                     [want_p[p] for p in paths],
+                                     [before[p] for p in paths], opt.lr)
+            log("zero", f"{arch} {CHECK_LAYERS} layers at full width, f32, "
+                f"B1 T{CHECK_T}, {ZERO_CHECK_STEPS} steps of {mode}, card "
+                f"(NCCL, p=1) vs CPU (lane_zero3, gloo, p=1; {t_cpu:.1f} s): "
+                f"losses {[round(x, 6) for x in losses]}, worst "
+                f"{e_l:.3e} (tol {CARD_LOSS_TOL:.0e}); parameters off by "
+                f"> {UPDATE_TOL:.0e} lr at {share:.3e} of the elements (tol "
+                f"{FLIP_SHARE:.0e}), largest {worst:.3e} lr; layer gathers "
+                f"{gathers}; launches K1/K2 {(fa.launches, k2.launches)}")
+            if not (e_l <= CARD_LOSS_TOL and share <= FLIP_SHARE):
+                raise RuntimeError(f"{arch} {mode}: the card's ZeRO steps "
+                                   f"disagree with the CPU's")
+            del full, got_p
+            torch.cuda.empty_cache()
+    dist.destroy_process_group(cpu_group)
+
+
+def phase_zero_train(topo, name, first_loss) -> dict:
+    """9b: ZERO_STEPS bf16 steps at full width, TRAIN_BATCH x TRAIN_SEQ
+    tokens, of each of ZERO_RUNS: step ms (median of steps 3-5), peak
+    memory beside the replicated step's, layer gathers and K1/K2
+    launches per step, and the losses held equal as ZERO_GATE says.  A
+    layout that does not fit prints its OOM, and then every
+    run goes again at --microbatch 2; one that does not fit there either
+    fails the phase.  The witness's launches are not the main
+    path's and stay out of the returned counts."""
+    opt = AdamWConfig(warmup_steps=1, total_steps=ZERO_STEPS,
+                      clip_norm=float("inf"))
+    rel = lambda a, b: [abs(x - y) / max(abs(y), 1e-12) for x, y in zip(a, b)]
+    bad = []
+    for mb in (0, 2):
+        out, launches, oom = {}, {}, []
+        for arch, mode in ZERO_RUNS:
+            cfg = resolve(arch)
+            L = cfg.num_layers
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            fa.launches = k2.launches = 0
+            try:
+                losses, sec, _, gathers = zero_run(
+                    cfg, mode, topo, init_model(cfg, seed=0, device="cuda"),
+                    steps_n=ZERO_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                    device="cuda", opt=opt, microbatch=mb, full=False)
+            except torch.cuda.OutOfMemoryError as e:
+                log("zero", f"{name} | {arch} {mode} microbatch {mb}: OOM "
+                    f"at 4 x 1024: {str(e).splitlines()[0]}")
+                oom.append((arch, mode))
+                continue
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            gathers /= ZERO_STEPS
+            per = {"flash_attention": fa.launches / ZERO_STEPS,
+                   "ssd": k2.launches / ZERO_STEPS}
+            if mode != "masters":
+                launches[f"zero {arch} {mode}" + (f" mb{mb}" if mb
+                                                  else "")] = {
+                    "flash_attention": fa.launches, "ssd": k2.launches}
+            out[arch, mode] = (losses, peak)
+            # per forward, and one forward per microbatch
+            fwd = max(mb, 1)
+            want = {"flash_attention": fwd * (2 * L if mode == "regather"
+                                              else L)
+                    if cfg.family == "dense" else 0,
+                    "ssd": fwd * L if cfg.family == "ssm" else 0}
+            want_g = 0 if mode in ("replicated", "lane_zero1", "masters") \
+                else fwd * (2 * L if mode == "regather" else L)
+            rep = out.get((arch, "replicated"))
+            # the same weights and batch as phase 7c's first step (but
+            # not its microbatching)
+            first = first_loss[arch] if mode == "replicated" and not mb \
+                else rep[0][0] if rep else None
+            gate, upto = ZERO_GATE.get(mode, (None, 0))
+            ref = out.get((arch, gate))
+            drift = max(rel(losses[1:upto], ref[0][1:upto]), default=0.0) \
+                if ref else None
+            steps_ = "step 2" if upto == 2 else f"steps 2-{upto}"
+            log("zero", f"{name} | {arch} {mode}" + (f" microbatch {mb}"
+                if mb else "") + f": step {np.median(sec[2:]) * 1e3:.1f} ms "
+                f"(median of steps 3-{ZERO_STEPS}, synchronised), peak "
+                f"{peak:.2f} GiB (replicated "
+                + (f"{rep[1]:.2f}" if rep else "not measured") + " GiB), "
+                f"layer gathers per step {gathers:g} (want {want_g}), K1/K2 "
+                f"launches per step {per['flash_attention']:g}/"
+                f"{per['ssd']:g} (want {want['flash_attention']}/"
+                f"{want['ssd']}); losses {[round(x, 5) for x in losses]}; "
+                f"step 1 {losses[0]!r} vs {first!r}"
+                + (" (phase 7c)" if mode == "replicated" and not mb else "")
+                + "; relative to the replicated step's "
+                + str([f"{x:.2e}" for x in rel(losses, rep[0])] if rep
+                      else "not measured")
+                + (f"; {steps_} {drift:.3e} from {gate}'s (must be 0)"
+                   if drift is not None else ""))
+            if first is None or (gate and ref is None):
+                # a reference ran out of memory: this pass is run again
+                # at microbatch 2, or fails below
+                continue
+            if losses[0] != first:
+                bad.append(f"{arch} {mode} microbatch {mb}: step 1's loss "
+                           f"{losses[0]!r} is not {first!r}")
+            if drift is not None and drift != 0:
+                bad.append(f"{arch} {mode} microbatch {mb}: {steps_} "
+                           f"{drift:.3e} from {gate}'s")
+            if gathers != want_g or per != {k: float(v)
+                                            for k, v in want.items()}:
+                bad.append(f"{arch} {mode} microbatch {mb}: gathers "
+                           f"{gathers}, launches {per}")
+            if not all(np.isfinite(losses)):
+                bad.append(f"{arch} {mode} microbatch {mb}: losses {losses}")
+        if not oom:
+            break
+        log("zero", f"{name} | {len(oom)} run(s) did not fit at 4 x 1024 "
+            f"with microbatch {mb} ({oom})"
+            + (": every run again at --microbatch 2" if not mb else ""))
+    if oom:
+        raise RuntimeError(f"ZeRO runs out of memory even at --microbatch "
+                           f"2: {oom}")
+    missing = [r for r in ZERO_RUNS if r not in out]
+    if missing:
+        raise RuntimeError(f"ZeRO runs without a result: {missing}")
+    if bad:
+        raise RuntimeError("; ".join(bad))
     return launches
 
 
@@ -1875,11 +2179,14 @@ def main() -> int:
     with torch.enable_grad():
         timed("autograd Functions", phase_autograd)
         timed("train step, card vs CPU", phase_train_check)
+        first_loss = {}
         for arch in TRAIN_ARCHS:
-            launches[f"train {arch}"] = timed(f"train {arch}", phase_train,
-                                              resolve(arch), name)
+            launches[f"train {arch}"], losses = timed(
+                f"train {arch}", phase_train, resolve(arch), name)
+            first_loss[arch] = losses[0]
             torch.cuda.empty_cache()
-    launches.update(timed("lane collectives", phase_lanes, name))
+    launches.update(timed("lane collectives and ZeRO", phase_lanes, name,
+                          first_loss))
     log("time", f"total: {time.perf_counter() - t_start:.1f} s")
     by_path = {k: {a: n[k] for a, n in launches.items()}
                for k in ("flash_attention", "ssd")}

@@ -2,42 +2,75 @@
 
 ``repro`` keeps its trees as JAX pytrees; the port's are plain dicts, and
 a list where ``repro`` stacks layers along a leading axis (``"blocks"``).
-The training code walks them with these three functions, in one fixed
-order (dict insertion order, list order).
+``flatten`` / ``leaves`` / ``unflatten`` / ``tree_map`` walk them in one
+order, ``repro``'s flat order, that of ``jax.tree.leaves`` on its stacked
+tree: dict keys sorted, and each layer stack walked leaf-major: for every
+per-layer key path (sorted), the L layers one after another, exactly the
+elements of ``repro``'s stacked ``(L, ...)`` leaf.  Every flat vector the
+port shares a layout with ``repro`` through (the gradient-sync buckets,
+the int8 chunks, the ZeRO shards and their decay masks) is in this order.
+
+A list under the key ``STACK_KEY`` (``"blocks"``, at the top and under
+the audio ``"encoder"``) is a layer stack: that is the one rule for which
+paths are stacks, and ``bridge`` maps paths with it (``repro_path``).
+Any other list is walked in its own order, as JAX walks a list.
 """
 from __future__ import annotations
 
+STACK_KEY = "blocks"
+
 
 def flatten(tree, prefix=()) -> list:
-    """``[(path, leaf), ...]``: a path is the tuple of dict keys and list
-    indices from the root."""
-    if isinstance(tree, dict):
-        items = tree.items()
-    elif isinstance(tree, list):
-        items = enumerate(tree)
-    else:
+    """``[(path, leaf), ...]`` in ``repro``'s flat order (module
+    docstring).  A path is the tuple of dict keys and list indices from
+    the root, a layer's index included."""
+    if isinstance(tree, list):
+        return [pl for i, v in enumerate(tree)
+                for pl in flatten(v, prefix + (i,))]
+    if not isinstance(tree, dict):
         return [(prefix, tree)]
-    return [pl for k, v in items for pl in flatten(v, prefix + (k,))]
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        if k == STACK_KEY and isinstance(v, list):
+            layers = [flatten(lp, prefix + (k, i)) for i, lp in enumerate(v)]
+            if any(len(lp) != len(layers[0]) for lp in layers):
+                raise ValueError(f"the layers of "
+                                 f"{'/'.join(map(str, prefix + (k,)))} "
+                                 f"differ in their leaves")
+            for j in range(len(layers[0]) if layers else 0):
+                out.extend(lp[j] for lp in layers)
+        else:
+            out.extend(flatten(v, prefix + (k,)))
+    return out
 
 
 def leaves(tree) -> list:
     return [leaf for _, leaf in flatten(tree)]
 
 
+def _skeleton(tree):
+    """``tree``'s dicts (in their own key order) and lists, None for its
+    leaves."""
+    if isinstance(tree, dict):
+        return {k: _skeleton(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_skeleton(v) for v in tree]
+    return None
+
+
 def unflatten(tree, new_leaves):
     """A tree shaped like ``tree`` with ``new_leaves`` in flatten order."""
-    it = iter(new_leaves)
-
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(v) for k, v in node.items()}
-        if isinstance(node, list):
-            return [build(v) for v in node]
-        return next(it)
-
-    out = build(tree)
-    if next(it, None) is not None:
-        raise ValueError("more leaves than the tree has")
+    paths = [p for p, _ in flatten(tree)]
+    new_leaves = list(new_leaves)
+    if len(new_leaves) != len(paths):
+        raise ValueError(f"{len(new_leaves)} leaves for a tree of "
+                         f"{len(paths)}")
+    if paths == [()]:
+        return new_leaves[0]
+    out = _skeleton(tree)
+    for path, leaf in zip(paths, new_leaves):
+        set_path(out, path, leaf)
     return out
 
 
@@ -45,3 +78,27 @@ def tree_map(fn, tree, *rest):
     """``fn`` over the leaves of ``tree`` and the same-shaped ``rest``."""
     return unflatten(tree, [fn(*ls) for ls in
                             zip(leaves(tree), *map(leaves, rest))])
+
+
+def repro_path(path: tuple) -> tuple:
+    """Port path -> (repro path, the stack's path, layer index), the last
+    two None outside a layer stack."""
+    for i, key in enumerate(path[:-1]):
+        if key == STACK_KEY and isinstance(path[i + 1], int):
+            return path[:i + 1] + path[i + 2:], path[:i + 1], path[i + 1]
+    return path, None, None
+
+
+def is_stacked(path: tuple) -> bool:
+    """The leaf at ``path`` sits in a layer stack (``repro`` gives it a
+    leading L axis, one rank more than the port's leaf)."""
+    return any(isinstance(k, int) for k in path)
+
+
+def set_path(tree, path: tuple, value) -> None:
+    """Put ``value`` at ``path`` of ``tree``, whose dicts and lists are
+    all there already (a skeleton from ``tree_map``)."""
+    node = tree
+    for k in path[:-1]:
+        node = node[k]
+    node[path[-1]] = value

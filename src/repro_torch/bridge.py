@@ -21,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import _tree
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import init_model
@@ -33,15 +34,6 @@ def _flatten(tree, prefix=()) -> dict:
             out.update(_flatten(v, prefix + (k,)))
         return out
     return {prefix: tree}
-
-
-def _repro_path(path: tuple) -> tuple:
-    """Port path → (repro path, the stack's path, layer index), the last
-    two None outside a ``"blocks"`` list."""
-    for i, key in enumerate(path[:-1]):
-        if key == "blocks" and isinstance(path[i + 1], int):
-            return path[:i + 1] + path[i + 2:], path[:i + 1], path[i + 1]
-    return path, None, None
 
 
 def params_from_repro(tree: dict, cfg: ModelConfig, *,
@@ -58,7 +50,7 @@ def params_from_repro(tree: dict, cfg: ModelConfig, *,
             return {k: fill(v, path + (k,)) for k, v in node.items()}
         if isinstance(node, list):
             return [fill(v, path + (i,)) for i, v in enumerate(node)]
-        rpath, stack, layer = _repro_path(path)
+        rpath, stack, layer = _tree.repro_path(path)
         if rpath not in src:
             raise KeyError(f"port parameter {'/'.join(map(str, path))} has "
                            f"no repro leaf {'/'.join(rpath)}")

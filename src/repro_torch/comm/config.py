@@ -24,8 +24,10 @@ class CommConfig:
         auto-eligible implementations with the cost model per call.
     buckets: gradient-sync bucket count K; 0 = cost-model auto (the §5
         latency/bandwidth crossover, ``core.costmodel.optimal_num_buckets``).
-    prefetch_blocks: ZeRO-3 weight-gather pipeline blocks B (0 = auto);
-        kept for ``repro``'s field set, the prefetch is ROADMAP.md item 9.
+    prefetch_blocks: ZeRO-3 per-layer weight-gather pipeline blocks B;
+        0 = cost-model auto, >0 = override, -1 = BLOCKING gather (the
+        negative control: ``prefetch_allgather`` dispatches to the
+        ``"blocking"`` strategy).
     compression: lane payload compression ("none" | "int8").  Descriptive
         — ``lane_int8`` is never auto-selected (lossy); this records that
         the owner opted in.
@@ -68,9 +70,11 @@ class CommConfig:
 
     @classmethod
     def from_run(cls, run: "RunConfig") -> "CommConfig":
-        """From the run's ``gradsync`` and ``gradsync_buckets``."""
+        """From the run's ``gradsync``, ``gradsync_buckets`` and
+        ``fsdp_prefetch``."""
         return cls(
             strategy=run.gradsync,
             buckets=run.gradsync_buckets,
+            prefetch_blocks=run.fsdp_prefetch,
             compression="int8" if run.gradsync == "lane_int8" else "none",
         )

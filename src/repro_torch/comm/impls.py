@@ -16,12 +16,18 @@ Registration legend per collective:
                    bcast/reduce rings are rooted at lane 0, so they are
                    never auto-selected)
   grad_sync        the training collective: native / lane /
-                   lane_pipelined / lane_int8, each in place
+                   lane_pipelined / lane_int8, each in place; lane_zero1
+                   and lane_zero3 return (this process's flat shard,
+                   spec) for the sharded optimizers
+  prefetch_allgather
+                   the ZeRO-3 per-layer weight re-gather: the §5
+                   pipelined AG(lane)→AG(node), or the monolithic
+                   blocking comparator
 
-The cells of later ROADMAP items (``lane_zero1``, ``lane_zero3``,
-``prefetch_allgather`` and ``kv_splice``: item 9; ``lane_quorum`` and
-``moe_route``: item 10) stay unregistered; resolving one raises
-``NotImplementedError`` naming its item (``registry.UNPORTED``).
+The cells of later ROADMAP items (``kv_splice``: item 9b;
+``lane_quorum`` and ``moe_route``: item 10) stay unregistered; resolving
+one raises ``NotImplementedError`` naming its item
+(``registry.UNPORTED``).
 """
 from __future__ import annotations
 
@@ -30,13 +36,16 @@ import torch.distributed as dist
 from repro_torch import _tree
 from repro_torch.core import collectives as C
 from repro_torch.core.lane import LaneTopology
+from repro_torch.core.costmodel import optimal_prefetch_blocks
 from repro_torch.core.pipeline import (
-    _pipelined_allreduce_lane, pipelined_allreduce_, pipelined_bcast_lane,
-    pipelined_reduce_lane,
+    _pipelined_allreduce_lane, pipelined_allgather_lane,
+    pipelined_allreduce_, pipelined_bcast_lane, pipelined_reduce_lane,
 )
 from repro_torch.optim.gradsync import (
     _ag_node, _ar_lane, _ar_lane_int8, _flatten_bucket, _rs_node,
-    _unflatten_bucket, bucket_schedule, resolve_num_buckets,
+    _rs_lane as _rs_lane_stage, _unflatten_bucket, bucket_schedule,
+    resolve_num_buckets, zero1_param_shard, zero3_param_shard,
+    zero3_unshard,
 )
 
 from . import costs
@@ -286,10 +295,78 @@ def _gs_int8(comm, grads, *, num_buckets=0):
     return _unflatten_bucket(flat.div_(topo.p()), spec)
 
 
-# the replicated train step runs every ported sync: params and moments
-# stay ordinary trees, identical on every rank
+@register_impl("grad_sync", "lane_zero1", auto_ok=False)
+def _gs_zero1(comm, grads, *, num_buckets=0):
+    """Returns (node-sharded flat, spec): RS(node) → AR(lane) per bucket
+    and no trailing all-gather; the caller owns it, moved past the
+    optimizer (``launch/steps.py``)."""
+    topo = comm.topo
+    K, flat, spec = _grad_prep(comm, grads, topo.n(), num_buckets)
+    bucket_schedule(flat, K, (_rs_node(topo), _ar_lane(topo)))
+    return zero1_param_shard(flat, topo, K).div_(topo.p()), spec
+
+
+@register_impl("grad_sync", "lane_zero3", auto_ok=False)
+def _gs_zero3(comm, grads, *, num_buckets=0):
+    """Returns (1/p-sharded flat, spec): RS(node) → RS(lane) per bucket,
+    the ``zero3_param_shard`` layout; the layer prefetch re-gathers in the
+    next forward (``models/blockstack.py``)."""
+    topo = comm.topo
+    K, flat, spec = _grad_prep(comm, grads, topo.p(), num_buckets)
+    bucket_schedule(flat, K, (_rs_node(topo), _rs_lane_stage(topo)))
+    return zero3_param_shard(flat, topo, K).div_(topo.p()), spec
+
+
+# the replicated train step runs the exact and int8 syncs: params and
+# moments stay ordinary trees, identical on every rank; the ZeRO steps
+# shard the moments (zero1) or the parameters too (zero3)
 for _s in ("native", "lane", "lane_pipelined", "lane_int8"):
     register_param_layout(_s, "replicated")
+register_param_layout("lane_zero1", "zero1")
+register_param_layout("lane_zero3", "zero3")
+
+
+# ---------------------------------------------------------------------------
+# prefetch_allgather — the ZeRO-3 per-layer weight re-gather
+# ---------------------------------------------------------------------------
+
+def _resolve_blocks(comm, lead: int, num_blocks) -> int:
+    """B for a per-process stripe of ``lead`` f32 rows.
+
+    An EXPLICIT num_blocks is strict: it names a shard layout the caller
+    already committed to, so an indivisible value raises downstream.
+    Only the auto path (None) may shrink: cfg.prefetch_blocks (-1 → 1,
+    the blocking control) or the cost model on the stripe bytes, clamped
+    to a divisor of lead."""
+    if num_blocks is not None:
+        return num_blocks
+    ov = comm.cfg.prefetch_blocks
+    if ov > 0:
+        B = ov
+    elif ov < 0:
+        B = 1
+    else:
+        B = optimal_prefetch_blocks(lead * 4)
+    B = max(1, min(B, lead))
+    while lead % B:
+        B -= 1
+    return B
+
+
+@register_impl("prefetch_allgather", "lane_pipelined",
+               cost=costs.cost_pipelined_allgather)
+def _prefetch_pipelined(comm, shard, *, num_blocks=None):
+    B = _resolve_blocks(comm, shard.shape[0], num_blocks)
+    return pipelined_allgather_lane(shard, comm.topo, num_blocks=B)
+
+
+@register_impl("prefetch_allgather", "blocking", auto_ok=False,
+               probe_ok=True)
+def _prefetch_blocking(comm, shard, *, num_blocks=None):
+    """Monolithic AG(lane)→AG(node) of the whole shard: the comparator
+    of the pipelined gather, never auto-selected."""
+    B = _resolve_blocks(comm, shard.shape[0], num_blocks)
+    return zero3_unshard(shard, comm.topo, B)
 
 
 def grad_sync_buckets(comm, grads, num_buckets=None) -> int:

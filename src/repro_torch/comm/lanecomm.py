@@ -5,7 +5,8 @@ factorization (:class:`~repro_torch.core.lane.LaneTopology`, its process
 groups), the tuning surface (:class:`~repro_torch.comm.config.CommConfig`)
 and the collective surface — ``allreduce``/``reduce_scatter``/
 ``allgather``/``bcast``/``alltoall``/``reduce``/``gather``/``scatter``/
-``scan`` plus the training collective ``grad_sync``.  Every method
+``scan`` plus the training collectives ``grad_sync`` and
+``prefetch_allgather``.  Every method
 resolves through the implementation registry
 (:mod:`~repro_torch.comm.registry`); ``strategy="auto"`` ranks the
 registered implementations with the §3/§5 cost model and records the
@@ -116,6 +117,10 @@ class LaneComm:
 
     # -- dispatch core ---------------------------------------------------
     def _default_strategy(self, collective: str) -> str:
+        if collective == "prefetch_allgather":
+            # -1 is the blocking negative control of the prefetch
+            return "blocking" if self.cfg.prefetch_blocks == -1 \
+                else "lane_pipelined"
         s = self.cfg.strategy
         return s if s == "auto" or has_impl(collective, s) else "auto"
 
@@ -187,14 +192,18 @@ class LaneComm:
 
     def prefetch_allgather(self, shard, *, strategy: Optional[str] = None,
                            num_blocks: Optional[int] = None):
-        """The ZeRO-3 weight re-gather; ROADMAP.md item 9 ports it."""
-        return self._dispatch("prefetch_allgather", shard,
-                              strategy or "lane_pipelined",
+        """Re-gather a 1/p ZeRO-3 stripe to the full flat vector.
+
+        Default strategy follows ``cfg.prefetch_blocks``: -1 dispatches
+        to the monolithic ``"blocking"`` gather (the negative control),
+        anything else to the §5 ``"lane_pipelined"`` AG(lane)→AG(node).
+        """
+        return self._dispatch("prefetch_allgather", shard, strategy,
                               num_blocks=num_blocks)
 
     def kv_splice(self, big, *, small, slot, batch_axis: int = 1,
                   strategy: Optional[str] = None, **kw):
-        """The serving KV distribution; ROADMAP.md item 9 ports it."""
+        """The serving KV distribution; ROADMAP.md item 9b ports it."""
         return self._dispatch("kv_splice", big, strategy or "lane",
                               small=small, slot=slot,
                               batch_axis=batch_axis, **kw)

@@ -5,8 +5,8 @@ collective schedule: the ZeRO flavors change where the master parameters
 and optimizer moments live.  Everything outside the step — the training
 loop's state init and, later, the checkpoint store — must agree with the
 step on that layout, so every train-step strategy declares its layout
-kind via :func:`register_param_layout` (``comm.impls`` registers the
-replicated ones beside the gradient syncs), and :meth:`LaneComm.param_layout
+kind via :func:`register_param_layout` (``comm.impls`` registers them
+beside the gradient syncs), and :meth:`LaneComm.param_layout
 <repro_torch.comm.LaneComm.param_layout>` answers it for a topology.
 
 Kinds:
@@ -18,8 +18,9 @@ Kinds:
               vector sharded over the node level.
   zero3       layer stack, params and moments, sharded 1/p.
 
-Only ``replicated`` is ported; the ZeRO kinds come with ROADMAP.md,
-Queue 1, item 9.
+On a single batch axis (one pod) ``repro`` degrades ``lane_zero1`` to
+the replicated step; the port's training loop does the same from the
+topology's ``single`` flag (``launch.steps.init_lane_train_state``).
 """
 from __future__ import annotations
 

@@ -38,10 +38,7 @@ _ITEM = "ROADMAP.md, Queue 1, item"
 #: (collective, strategy) -> the ROADMAP item that ports it; "*" stands
 #: for every strategy of the collective.
 UNPORTED = {
-    ("grad_sync", "lane_zero1"): f"{_ITEM} 9 (ZeRO)",
-    ("grad_sync", "lane_zero3"): f"{_ITEM} 9 (ZeRO)",
-    ("prefetch_allgather", "*"): f"{_ITEM} 9 (ZeRO)",
-    ("kv_splice", "*"): f"{_ITEM} 9 (ZeRO serve hosting)",
+    ("kv_splice", "*"): f"{_ITEM} 9b (ZeRO serve hosting)",
     ("grad_sync", "lane_quorum"): f"{_ITEM} 10 (runtime/)",
     ("moe_route", "*"): f"{_ITEM} 10 (TP/EP)",
 }

@@ -142,17 +142,25 @@ class RunConfig:
     port honours, validated at construction as ``repro`` validates them.
 
     ``remat``: ``"none"`` | ``"full"`` | ``"dots"`` (the last raises in the
-    forward: not ported).  ``gradsync``: the replicated step's gradient
-    sync, ``"native"``, ``"lane"``, ``"lane_pipelined"`` or
-    ``"lane_int8"``; ``repro``'s other strategies raise, naming their
-    ROADMAP.md items.  ``gradsync_buckets``: the bucket count K of the
-    lane strategies (0 = cost-model auto).  ``microbatch``:
-    gradient-accumulation microbatches per step (0 = off).
-    ``accum_dtype``: their accumulator, ``"float32"`` or ``"bfloat16"``."""
+    forward: not ported).  ``gradsync``: the gradient sync and parameter
+    layout, ``"native"``, ``"lane"``, ``"lane_pipelined"`` or
+    ``"lane_int8"`` (the replicated step), ``"lane_zero1"`` or
+    ``"lane_zero3"`` (the ZeRO steps); ``repro``'s other strategies
+    raise, naming their ROADMAP.md items.  ``gradsync_buckets``: the
+    bucket count K of the lane strategies (0 = cost-model auto).
+    ``fsdp_prefetch``: ``lane_zero3``'s per-layer gather blocks B (0 =
+    cost-model auto, > 0 that many, -1 = the blocking gather, no
+    prefetch); ``fsdp_regather``: gather each layer again in the
+    backward (the step builder refuses it together with -1, as
+    ``repro``'s does).  ``microbatch``: gradient-accumulation
+    microbatches per step (0 = off).  ``accum_dtype``: their
+    accumulator, ``"float32"`` or ``"bfloat16"``."""
     model: ModelConfig
     remat: str = "none"
     gradsync: str = "native"
     gradsync_buckets: int = 0
+    fsdp_prefetch: int = 0
+    fsdp_regather: bool = False
     microbatch: int = 0
     accum_dtype: str = "float32"
 

@@ -25,7 +25,8 @@ import torch.distributed as dist
 from .lane import LaneTopology
 
 __all__ = ["pipelined_bcast_lane", "pipelined_reduce_lane",
-           "pipelined_allgather_lane", "pipeline_steps",
+           "pipelined_allgather_lane", "pipelined_reduce_scatter_lane_",
+           "pipeline_steps",
            "allreduce_pipeline_steps", "allgather_pipeline_steps",
            "ALLREDUCE_STAGES", "ALLGATHER_STAGES"]
 
@@ -265,3 +266,44 @@ def pipelined_allgather_lane(x, topo: LaneTopology, *, num_blocks: int):
                 group=topo.node_group, async_op=True))
         _wait(works)
     return out.reshape(B * n * N * s, *rest)
+
+
+def pipelined_reduce_scatter_lane_(x, topo: LaneTopology, *, num_blocks: int):
+    """The transpose of :func:`pipelined_allgather_lane`, in place: the
+    ZeRO-3 gradient of a gathered layer back to its shard (what ``repro``
+    gets from JAX's AD of the gather).
+
+    ``x`` is the (B·n·N·s, ...) cotangent of a gathered row, rows ordered
+    (block, node_rank, lane_rank, s).  Blocks run in the transposed order,
+    last first; at step t the RS(node) of block B-1-t (into this
+    process's node stripe of the block) and the RS(lane) of block B-t
+    (that stripe into its lane rank's s rows) are issued together on
+    their groups.  Returns this process's (B·s, ...) sums: a view of
+    ``x`` when p = 1, else a copy.
+    """
+    n, N = topo.n(), topo.N()
+    B = num_blocks
+    if B < 1:
+        raise ValueError(f"num_blocks must be >= 1, got {B}")
+    c = x.shape[0]
+    if c % (B * n * N):
+        raise ValueError(f"payload {c} not divisible by num_blocks*p="
+                         f"{B * n * N}")
+    s = c // (B * n * N)
+    rest = x.shape[1:]
+    i, j = topo.node_rank(), topo.lane_rank()
+    xb = x.view(B, n, N * s, *rest)
+    for t in range(B + 1):
+        works = []
+        if t < B:                                 # stage 1: RS(node)
+            b = B - 1 - t
+            works.append(dist.reduce_scatter_tensor(
+                xb[b, i], xb[b].view(n * N * s, *rest),
+                group=topo.node_group, async_op=True))
+        if t >= 1:                                # stage 2: RS(lane)
+            stripe = xb[B - t, i]
+            works.append(dist.reduce_scatter_tensor(
+                stripe[j * s:(j + 1) * s], stripe, group=topo.lane_group,
+                async_op=True))
+        _wait(works)
+    return x.view(B, n, N, s, *rest)[:, i, j].reshape(B * s, *rest)

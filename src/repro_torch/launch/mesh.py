@@ -83,10 +83,17 @@ def init_world(device="cuda", *, rank=None, world_size=None,
     return dev
 
 
-def resolve_pods(pods: int) -> int:
-    """0 = auto: one pod.  (``repro`` gives ``lane_zero3`` two pods when
-    the devices allow; ZeRO is ROADMAP.md, Queue 1, item 9.)"""
-    return pods or 1
+def resolve_pods(pods: int, gradsync: str = "native",
+                 n: "int | None" = None) -> int:
+    """0 = auto, ``repro``'s rule: ``lane_zero3`` needs distinct lane and
+    node levels, so it gets 2 pods when the ``n`` processes (default: the
+    world) number 4 or more and are even; everything else gets one."""
+    if pods:
+        return pods
+    n = world_size() if n is None else n
+    if gradsync == "lane_zero3" and n >= 4 and n % 2 == 0:
+        return 2
+    return 1
 
 
 def mesh_shape(n: int, batch: int = 1 << 30, pods: int = 1):

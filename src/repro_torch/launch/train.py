@@ -15,14 +15,20 @@ Across ranks it runs under ``torchrun`` (or any started process group):
 mesh, each rank takes its rows of the global batch in ``repro``'s
 sharding order (pod-major, global rank ``lane_rank·n + node_rank``), and
 the step syncs the gradients with ``--gradsync`` (``native``, ``lane``,
-``lane_pipelined`` or ``lane_int8``) over ``--gradsync-buckets`` buckets:
+``lane_pipelined`` or ``lane_int8``) over ``--gradsync-buckets`` buckets,
+or keeps ZeRO state: ``lane_zero1`` shards the AdamW moments over the
+node level, ``lane_zero3`` the parameters too, over both levels, and
+gathers each layer in the forward (``--fsdp-prefetch`` blocks, -1 the
+blocking gather; ``--fsdp-regather`` gathers again in the backward):
 
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
       --arch llama3.2-3b --smoke --gradsync lane --pods 2 --device cpu
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch llama3.2-3b --smoke --gradsync lane_zero3 --pods 2 --device cpu
 
 The rest of ``repro``'s training loop is not ported yet.  Each of its flags
 is accepted and raises, naming its ROADMAP.md item, when it is set away
-from its default: checkpointing and ZeRO (item 9), tensor and expert
+from its default: checkpointing (item 9b), tensor and expert
 parallelism, fault injection, elastic restarts and tuning (item 10).
 Nothing is ignored silently.
 """
@@ -43,17 +49,16 @@ from repro_torch.comm import CommConfig, LaneComm
 from repro_torch.configs import RunConfig, resolve
 from repro_torch.data import make_loader
 from repro_torch.launch import mesh
-from repro_torch.launch.steps import build_train_step, init_train_state
+from repro_torch.launch.steps import (build_train_step,
+                                     init_lane_train_state)
 from repro_torch.models import init_model
 from repro_torch.optim import AdamWConfig
 
 # repro's flags that the port does not honour yet: (default, ROADMAP item)
 _ITEM = "ROADMAP.md, Queue 1, item"
 UNPORTED = {
-    "ckpt": ("", f"{_ITEM} 9 (checkpoint/)"),
-    "ckpt_every": (50, f"{_ITEM} 9 (checkpoint/)"),
-    "fsdp_prefetch": (0, f"{_ITEM} 9 (ZeRO)"),
-    "fsdp_regather": (False, f"{_ITEM} 9 (ZeRO)"),
+    "ckpt": ("", f"{_ITEM} 9b (checkpoint/)"),
+    "ckpt_every": (50, f"{_ITEM} 9b (checkpoint/)"),
     "model_parallel": (1, f"{_ITEM} 10 (TP/EP)"),
     "expert_parallel": (False, f"{_ITEM} 10 (TP/EP)"),
     "ep_blocks": (1, f"{_ITEM} 10 (TP/EP)"),
@@ -87,12 +92,20 @@ def _parser() -> argparse.ArgumentParser:
                     help="microbatch gradient accumulator precision")
     ap.add_argument("--gradsync", default="native",
                     help="gradient sync across ranks: native, lane, "
-                         "lane_pipelined or lane_int8 (repro's other "
-                         "strategies raise, naming their items)")
+                         "lane_pipelined, lane_int8, lane_zero1 or "
+                         "lane_zero3 (repro's other strategies raise, "
+                         "naming their items)")
     ap.add_argument("--gradsync-buckets", type=int, default=0,
                     help="bucket count K; 0 = cost-model auto")
+    ap.add_argument("--fsdp-prefetch", type=int, default=0,
+                    help="lane_zero3 gather blocks B; 0 = auto, "
+                         "-1 = blocking negative control")
+    ap.add_argument("--fsdp-regather", action="store_true",
+                    help="lane_zero3 backward re-gather: re-run each "
+                         "layer's weight gather in the backward")
     ap.add_argument("--pods", type=int, default=0,
-                    help="pod (lane) axis size; 0 = auto (1)")
+                    help="pod (lane) axis size; 0 = auto (lane_zero3 "
+                         "gets 2 when the ranks allow, else 1)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     for name, (default, _) in UNPORTED.items():
@@ -119,9 +132,12 @@ def _multi_rank() -> bool:
 
 
 def run(argv=None, *, params=None):
-    """Train; returns (every step's loss as floats, params, opt_state).
-    ``params``: the initial weights (the port's tree, e.g. from
-    ``bridge.params_from_repro``); default ``init_model`` from ``--seed``.
+    """Train; returns (every step's loss as floats, the whole parameter
+    tree, opt_state).  Under ``lane_zero3`` the tree is gathered from the
+    stripes (every rank makes the same collective calls); ``opt_state``
+    stays in the step's layout.  ``params``: the initial weights (the
+    port's tree, e.g. from ``bridge.params_from_repro``); default
+    ``init_model`` from ``--seed``.
     The log lines and the closing loss check are ``repro``'s, printed by
     world rank 0."""
     args = _parser().parse_args(argv)
@@ -129,33 +145,38 @@ def run(argv=None, *, params=None):
     cfg = resolve(args.arch, smoke=args.smoke)
     run_cfg = RunConfig(model=cfg, remat=args.remat, gradsync=args.gradsync,
                         gradsync_buckets=args.gradsync_buckets,
+                        fsdp_prefetch=args.fsdp_prefetch,
+                        fsdp_regather=args.fsdp_regather,
                         microbatch=args.microbatch,
                         accum_dtype=args.accum_dtype)
-    pods = mesh.resolve_pods(args.pods)
     owns_world = False
     if _multi_rank():
         owns_world = not dist.is_initialized()
         dev = mesh.init_world(args.device)
+        pods = mesh.resolve_pods(args.pods, args.gradsync)
         topo, single = mesh.make_lane_topology(args.batch, pods)
         comm = LaneComm(topo, CommConfig.from_run(run_cfg))
         rows = args.batch // topo.p()
         row0 = topo.global_rank() * rows
         lead = dist.get_rank() == 0
-    else:
-        mesh.mesh_shape(1, args.batch, pods)     # repro's rules, one device
+    else:                                    # repro's rules, one device
+        mesh.mesh_shape(1, args.batch,
+                        mesh.resolve_pods(args.pods, args.gradsync, 1))
         dev = resolve_device(args.device)
         comm, single, row0, rows, lead = None, True, 0, args.batch, True
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps // 5),
                           total_steps=args.steps)
-    step = build_train_step(run_cfg, opt_cfg, comm, single=single)
-    if params is None:
-        params = init_model(cfg, seed=args.seed, device=dev)
-    params, opt_state = init_train_state(params, device=dev)
-    loader = make_loader(cfg, args.seq, args.batch, seed=args.seed)
-
-    t0 = time.time()
     losses, logged = [], []
     try:
+        # the step first (it refuses lane_zero3 on one batch axis), then
+        # the state in its layout
+        step = build_train_step(run_cfg, opt_cfg, comm, single=single)
+        if params is None:
+            params = init_model(cfg, seed=args.seed, device=dev)
+        params, opt_state = init_lane_train_state(run_cfg, params, comm,
+                                                  single=single, device=dev)
+        loader = make_loader(cfg, args.seq, args.batch, seed=args.seed)
+        t0 = time.time()
         for s in range(args.steps):
             toks, labels = loader.batch_slice(s, row0, rows)
             loss, params, opt_state = step(
@@ -169,6 +190,7 @@ def run(argv=None, *, params=None):
                 if lead:
                     print(f"step {s:5d}  loss {lv:8.4f}  tok/s {tps:9.0f}",
                           flush=True)
+        params = step.full_params(params)
     finally:
         if owns_world:
             dist.destroy_process_group()

@@ -15,7 +15,9 @@ Counterpart of ``repro.models.transformer``:
 over a tied or untied embedding.  ``repro`` stacks every layer's weights
 along a leading L axis and scans over them; here ``params["blocks"]`` (and
 the audio ``params["encoder"]["blocks"]``) is a list of per-layer dicts
-and a Python loop walks it.  The caches stay stacked, every leaf with its
+and a Python loop walks it, or, under ZeRO-3, a ``ShardedStack`` whose
+layers ``models.blockstack.scan_stack`` gathers one by one into the
+family's registered body (``register_block_stack``).  The caches stay stacked, every leaf with its
 batch on axis 1: dense, moe, vlm and audio ``{"k", "v"}`` of shape (L, B,
 S, K, hd); ssm the Mamba2 state ``{"conv_x", "conv_B", "conv_C", "ssm"}``
 with a leading L; hybrid ``{"mamba": <the ssm cache>, "attn": {"k", "v"}
@@ -47,6 +49,8 @@ from . import attention as A
 from . import layers as L
 from . import moe as M
 from . import ssm as S
+from .blockstack import (BlockSpec, ShardedStack, block_stack_spec,
+                         register_block_stack, scan_stack)
 
 _FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 # families whose every layer is an attention block (one KV cache per layer)
@@ -286,7 +290,14 @@ def model_forward(params, cfg: ModelConfig, tokens, *, extra_embeds=None,
     positions = torch.arange(h.shape[1], device=h.device)[None]
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     block = functools.partial(_dense_block, cfg=cfg, positions=positions)
-    if cfg.family in _SCANNED_FAMILIES:
+    if isinstance(params["blocks"], ShardedStack):
+        # ZeRO-3: one code path for every family, its registered body
+        # under scan_stack's gather (models/blockstack.py)
+        body = block_stack_spec(cfg).make_body(
+            cfg, params, positions=positions, enc_out=enc_out, remat=remat)
+        h, aux_ys = scan_stack(params["blocks"], h, body)
+        aux_total = aux_ys.sum()
+    elif cfg.family in _SCANNED_FAMILIES:
         block = functools.partial(block, enc_out=enc_out)
         for lp in params["blocks"]:
             h, aux = run(block, lp, h)
@@ -299,6 +310,79 @@ def model_forward(params, cfg: ModelConfig, tokens, *, extra_embeds=None,
             h, _ = run(mamba, lp, h)
     h = _norm(cfg, params["final_norm"], h)
     return L.unembed(params["embed"], h), aux_total
+
+
+# ---------------------------------------------------------------------------
+# block-stack specs: how each family rides the ZeRO-3 sharded stack
+# ---------------------------------------------------------------------------
+
+def _scanned_stack_body(cfg, params, *, positions, enc_out, remat):
+    """Per-layer body of the attention families: the replicated layer
+    loop's block, with its remat."""
+    run = _layer_runner(remat)
+    block = functools.partial(_dense_block, cfg=cfg, positions=positions,
+                              enc_out=enc_out)
+
+    def body(h, lp, i):
+        return run(block, lp, h)
+    return body
+
+
+def _ssm_stack_body(cfg, params, *, positions, enc_out, remat):
+    """The Mamba2 block as the sharded layer unit."""
+    run = _layer_runner(remat)
+    mamba = functools.partial(_mamba_block, cfg=cfg)
+
+    def body(h, lp, i):
+        return run(mamba, lp, h)[0], 0.0
+    return body
+
+
+def _hybrid_stack_body(cfg, params, *, positions, enc_out, remat):
+    """Zamba2 as a flat per-layer loop: the weight-SHARED attention block
+    (replicated, not gathered) runs before Mamba2 layer i exactly when i
+    opens a group, as in the replicated forward."""
+    run = _layer_runner(remat)
+    block = functools.partial(_dense_block, cfg=cfg, positions=positions)
+    mamba = functools.partial(_mamba_block, cfg=cfg)
+    shared = params["shared_attn"]
+
+    def body(h, lp, i):
+        if _shared_attn_group(cfg, i) is not None:
+            h, _ = run(block, shared, h)
+        return run(mamba, lp, h)[0], 0.0
+    return body
+
+
+@register_block_stack("dense")
+@register_block_stack("vlm")
+@register_block_stack("audio")
+def _block_stack_attn(cfg: ModelConfig) -> BlockSpec:
+    """The attention families: the layer stack is the sharding unit;
+    embed/final_norm (+ vis_proj / encoder) ride as the extras.  vlm and
+    audio need patches / frames the training driver does not make."""
+    return BlockSpec(family=cfg.family, make_body=_scanned_stack_body,
+                     needs_extra_embeds=cfg.family in ("vlm", "audio"))
+
+
+@register_block_stack("moe")
+def _block_stack_moe(cfg: ModelConfig) -> BlockSpec:
+    """MoE: the same skeleton; the 1/p stripes slice through the experts
+    (no expert parallelism: ROADMAP.md, Queue 1, item 10)."""
+    return BlockSpec(family="moe", make_body=_scanned_stack_body)
+
+
+@register_block_stack("ssm")
+def _block_stack_ssm(cfg: ModelConfig) -> BlockSpec:
+    return BlockSpec(family="ssm", make_body=_ssm_stack_body)
+
+
+@register_block_stack("hybrid")
+def _block_stack_hybrid(cfg: ModelConfig) -> BlockSpec:
+    """The Mamba2 backbone sharded 1/p; the shared attention block stays
+    replicated and syncs through the bucketed lane path."""
+    return BlockSpec(family="hybrid", make_body=_hybrid_stack_body,
+                     replicated_keys=("shared_attn",))
 
 
 # ---------------------------------------------------------------------------

@@ -68,19 +68,21 @@ def global_norm(tree) -> torch.Tensor:
 def _decays(path, p) -> bool:
     """Whether ``repro`` decays this leaf: rank >= 2 in its layout, where
     a leaf in a list of layers has the stacked L axis too."""
-    stacked = any(isinstance(k, int) for k in path)
-    return p.ndim + stacked >= 2
+    return p.ndim + _tree.is_stacked(path) >= 2
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, grads, state, params):
+def adamw_update(cfg: AdamWConfig, grads, state, params, *,
+                 grad_norm=None):
     """One AdamW step, in place: returns ``(params, state)``, the objects
     it was given, updated.  ``grads`` mirrors ``params`` (any float dtype)
-    and is clipped by its global norm.  (``repro``'s ``grad_norm``
-    override serves its sharded optimizers, ROADMAP.md item 9.)"""
+    and is clipped by its global norm, or by ``grad_norm`` where given:
+    the ZeRO steps pass the whole model's norm for the part of it that
+    stays a tree (``launch/steps.py``), as ``repro``'s override does."""
     count = state["count"] + 1
-    scale = torch.clamp(cfg.clip_norm / torch.clamp(global_norm(grads),
-                                                    min=1e-9), max=1.0)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
+                        max=1.0)
     lr = cosine_lr(cfg, count)
     f = np.float32
     c1 = float(f(1) - f(cfg.b1) ** f(count))

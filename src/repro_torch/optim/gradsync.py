@@ -6,9 +6,12 @@ wave-skewed bucket schedule and the node and lane stages.  The strategy
 dispatch (``native`` / ``lane`` / ``lane_pipelined`` / ``lane_int8``)
 lives in the registry, :mod:`repro_torch.comm.impls`.
 
-Every bucketed strategy flattens the gradient tree into one f32 vector,
-pads it and splits it into K equal buckets; each bucket runs
-ReduceScatter(node) → Allreduce(lane) → AllGather(node).  Unlike
+Every bucketed strategy flattens the gradient tree into one f32 vector
+in ``repro``'s flat order (``_tree.leaves``: the same elements in
+the same places, so the buckets, the int8 chunks and the ZeRO shards
+hold what ``repro``'s hold), pads it and splits it into K equal
+buckets; each bucket runs ReduceScatter(node) → Allreduce(lane) →
+AllGather(node).  Unlike
 ``repro``, which is functional, the port works in place, because a copy
 of llama3.2-3b's gradients is 12.8 GB:
 
@@ -23,6 +26,12 @@ of llama3.2-3b's gradients is 12.8 GB:
 
 So a sync holds one f32 copy of the gradients beyond the gradients
 themselves.
+
+The ZeRO layouts are ``repro``'s: ``lane_zero1`` keeps the bucket-major
+(K, n, s) node stripes (``zero1_param_shard`` / ``zero1_unshard``),
+``lane_zero3`` the (B, n·N, s) stripes indexed ``node_rank·N +
+lane_rank`` (``zero3_param_shard`` / ``zero3_unshard``), and
+``decay_mask_flat`` marks the elements AdamW decays.
 """
 from __future__ import annotations
 
@@ -36,12 +45,14 @@ from repro_torch.core.costmodel import optimal_num_buckets
 from repro_torch.core.lane import LaneTopology
 
 __all__ = ["compress_int8", "decompress_int8", "pack_int8_payload",
-           "unpack_int8_payload", "resolve_num_buckets", "bucket_schedule"]
+           "unpack_int8_payload", "resolve_num_buckets", "bucket_schedule",
+           "zero1_param_shard", "zero1_unshard", "zero3_param_shard",
+           "zero3_unshard", "decay_mask_flat"]
 
 
 def _flatten_bucket(tree, pad_to: int):
-    """(flat, spec): the leaves of ``tree`` in ``_tree`` order, cast to
-    f32 into one new buffer zero-padded to a multiple of ``pad_to``."""
+    """(flat, spec): the leaves of ``tree`` in ``repro``'s flat order, cast
+    to f32 into one new buffer zero-padded to a multiple of ``pad_to``."""
     leaves = _tree.leaves(tree)
     n = sum(l.numel() for l in leaves)
     flat = torch.empty(n + (-n) % pad_to, dtype=torch.float32,
@@ -71,13 +82,17 @@ _INT8_CHUNK = 1024
 
 def compress_int8(x):
     """Chunked symmetric int8 quantization of the 1-D f32 ``x``; returns
-    (q (C, 1024) int8, scales (C, 1) f32, len(x))."""
+    (q (C, 1024) int8, scales (C, 1) f32, len(x)).  The scale divides by
+    127 as a tensor on ``x``'s device: PyTorch's CUDA division by a Python
+    number multiplies by its reciprocal, one ulp off the CPU's (and
+    ``repro``'s) quotient in some chunks, which moves their bytes."""
     n = x.shape[0]
     pad = (-n) % _INT8_CHUNK
     if pad:
         x = torch.cat([x, x.new_zeros(pad)])
     xr = x.reshape(-1, _INT8_CHUNK)
-    scale = xr.abs().amax(dim=1, keepdim=True) / 127.0 + 1e-12
+    scale = xr.abs().amax(dim=1, keepdim=True) \
+        / torch.full((), 127.0, device=x.device) + 1e-12
     q = torch.clamp(torch.round(xr / scale), -127, 127).to(torch.int8)
     return q, scale.to(torch.float32), n
 
@@ -218,3 +233,121 @@ def _ar_lane_int8(topo: LaneTopology):
         return finish
     return stage
 
+
+
+def _rs_lane(topo: LaneTopology):
+    """ReduceScatter(lane) of this process's node stripe of a bucket into
+    its lane rank's chunk of that stripe (the ``lane_zero3`` stage)."""
+    def stage(v):
+        stripe = _stripe(v, topo)
+        s = stripe.shape[0] // topo.N()
+        j = topo.lane_rank()
+        return dist.reduce_scatter_tensor(
+            stripe[j * s:(j + 1) * s], stripe, group=topo.lane_group,
+            async_op=True).wait
+    return stage
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1 shard layout (bucket-major, mirrors the bucketed reduce-scatter)
+# ---------------------------------------------------------------------------
+#
+# With K buckets, process i's lane_zero1 shard is its node stripe of every
+# bucket, [b0·stripe_i, b1·stripe_i, ...]: the flat vector viewed as
+# (K, n, s) taken at node_rank on the middle axis.  Reassembly needs
+# repro's (n, K) → (K, n) swap (the paper's Listing-5 reorder).
+
+def zero1_param_shard(flat, topo: LaneTopology, num_buckets: int):
+    """This process's (K·s,) shard of the padded flat vector, the layout
+    ``grad_sync(..., "lane_zero1", num_buckets=K)`` returns: a view of
+    ``flat`` when n = 1, else a copy."""
+    n, K = topo.n(), num_buckets
+    s = flat.shape[0] // (K * n)
+    return flat.view(K, n, s)[:, topo.node_rank()].reshape(K * s)
+
+
+def zero1_unshard(shard, topo: LaneTopology, num_buckets: int, out=None):
+    """All-gather every process's (K·s,) shard over the node group into
+    the flat (K·n·s,) order, in ``out`` (a new buffer if None).
+
+    ``repro`` gathers whole shards, rank-major (n, K, s), and swaps them
+    to (K, n, s): a second flat copy.  Here each bucket's gather lands at
+    its own place, so the swap is the addressing of K all-gathers (one
+    per bucket, in flight together): bucket b's n stripes fill row b of
+    ``out`` viewed (K, n·s).  Where ``shard`` is ``out``'s own stripe of
+    each bucket (``zero1_param_shard`` of ``out`` at n = 1) the gathers
+    run in place."""
+    n, K = topo.n(), num_buckets
+    s = shard.shape[0] // K
+    if out is None:
+        out = shard.new_empty(K * n * s)
+    rows, parts = out.view(K, n * s), shard.view(K, s)
+    works = [dist.all_gather_into_tensor(rows[b], parts[b],
+                                         group=topo.node_group,
+                                         async_op=True) for b in range(K)]
+    for w in works:
+        w.wait()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-3 shard layout (bucket-major over node_rank × lane_rank)
+# ---------------------------------------------------------------------------
+#
+# ZeRO-3 shards over the whole p = n·N communicator: with B blocks,
+# process (node_rank i, lane_rank j) holds the flat vector viewed as
+# (B, n·N, s) at [:, i·N + j, :].  That is the order
+# core.pipeline.pipelined_allgather_lane reassembles blocks in, so the
+# per-layer gather needs no permute; only the monolithic unshard pays one.
+
+def zero3_param_shard(flat, topo: LaneTopology, num_blocks: int):
+    """This process's 1/p stripe of the padded flat vector: the layout
+    ``grad_sync(..., "lane_zero3", num_buckets=B)`` returns and
+    ``pipelined_allgather_lane`` gathers (a view when p = 1)."""
+    n, N, B = topo.n(), topo.N(), num_blocks
+    rest = flat.shape[1:]
+    s = flat.shape[0] // (B * n * N)
+    idx = topo.node_rank() * N + topo.lane_rank()
+    return flat.view(B, n * N, s, *rest)[:, idx].reshape(B * s, *rest)
+
+
+def zero3_unshard(shard, topo: LaneTopology, num_blocks: int):
+    """Monolithic reassembly of the (B·s,) stripes to the flat (B·n·N·s,)
+    vector: AG(lane) then AG(node) of the WHOLE shard, which lands the
+    rows in (i, j, b, s) order, then repro's (n·N, B) → (B, n·N)
+    permute.  The blocking comparator of the pipelined per-block gather
+    (``--fsdp-prefetch -1``)."""
+    n, N, B = topo.n(), topo.N(), num_blocks
+    rest = shard.shape[1:]
+    c = shard.shape[0]
+    lane = shard.new_empty((N * c, *rest))
+    dist.all_gather_into_tensor(lane, shard.contiguous(),
+                                group=topo.lane_group)
+    g = shard.new_empty((n * N * c, *rest))
+    dist.all_gather_into_tensor(g, lane, group=topo.node_group)
+    s = c // B
+    return g.view(n * N, B, s, *rest).transpose(0, 1).reshape(
+        B * n * N * s, *rest)
+
+
+# ---------------------------------------------------------------------------
+# optimizer-layout helper (shared by the sharded-AdamW call sites)
+# ---------------------------------------------------------------------------
+
+def decay_mask_flat(tree, pad_to: int, *, dtype=torch.float32):
+    """0/1 mask over the ``_flatten_bucket`` layout of ``tree``: 1 where
+    the element's leaf has rank >= 2 in ``repro``'s layout (a leaf of a
+    layer stack counts its L axis), exactly the leaves AdamW decays;
+    padding 0.  ``dtype``: f32 as ``repro``'s, or bool, a quarter of the
+    memory, for the flat AdamW (``launch/steps.py``)."""
+    flat = _tree.flatten(tree)
+    n = sum(leaf.numel() for _, leaf in flat)
+    mask = torch.ones(n + (-n) % pad_to, dtype=dtype,
+                      device=flat[0][1].device)
+    ofs = 0
+    for path, leaf in flat:
+        if leaf.ndim + _tree.is_stacked(path) < 2:
+            mask[ofs:ofs + leaf.numel()] = 0
+        ofs += leaf.numel()
+    mask[n:] = 0
+    return mask

@@ -138,7 +138,7 @@ def _serve_replicated(ctx: ServeContext) -> ServeStep:
 def _serve_zero3(ctx: ServeContext) -> ServeStep:
     raise NotImplementedError(
         "hosting 'lane_zero3' is not ported yet; it comes with the ZeRO "
-        "slice of ROADMAP.md (Queue 1, item 9)")
+        "slice of ROADMAP.md (Queue 1, item 9b)")
 
 
 HOSTINGS = {"replicated": _serve_replicated, "lane_zero3": _serve_zero3}

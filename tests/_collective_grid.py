@@ -87,16 +87,58 @@ def cases(topo_key):
 
 
 def payload(case, n, N, seed):
-    """(p, rows, 2) per-rank inputs, integer-valued, as float32 (f32 and
-    bf16) or int32; a replicated root node holds one buffer."""
+    """(p, rows, 2) per-rank inputs ((p, 2·rows) for a ``flat`` case),
+    integer-valued, as float32 (f32 and bf16) or int32; a replicated root
+    node holds one buffer."""
     rng = np.random.default_rng(seed)
     xs = rng.integers(-4, 5, size=(n * N, case["rows"], 2))
     xs = xs.astype(np.int32 if case["dtype"] == "int32" else np.float32)
     if case["replicate"] is not None:
         base = case["replicate"] * n
         xs[base:base + n] = xs[base]
+    if case.get("flat"):
+        xs = xs.reshape(n * N, -1)
     return xs
 
 
 def seed_of(topo_key, index):
     return 1000 * list(TOPOS).index(topo_key) + index
+
+
+# ---------------------------------------------------------------------------
+# the ZeRO cells and shard layouts (tests/test_torch_zero.py)
+# ---------------------------------------------------------------------------
+
+ZERO_K = 3                 # buckets of the ZeRO-1 cases, blocks of ZeRO-3
+
+
+def zero_cases(topo_key):
+    """[{name, coll, strategy, dtype, rows, kw, root, replicate, flat}]:
+    the ``lane_zero1`` / ``lane_zero3`` grad syncs (a one-leaf tree
+    ``{"g": x}``, f32 out; rows that need padding and rows that do not),
+    the ``prefetch_allgather`` cells, and ``optim.gradsync``'s shard and
+    unshard functions (called as ``fn(x, topo, K)``), on 1-D payloads
+    (``flat``) where ``repro``'s take only those."""
+    n, N = TOPOS[topo_key]
+    p, K = n * N, ZERO_K
+    out = []
+
+    def add(coll, strategy, dt, rows, kw=None, flat=False, tag=""):
+        out.append(dict(name=f"{coll}.{strategy}{tag}.{dt}", coll=coll,
+                        strategy=strategy, dtype=dt, rows=rows,
+                        kw=dict(kw or {}), root=None, replicate=None,
+                        flat=flat))
+
+    for dt in DTYPES:
+        for strategy in ("lane_zero1", "lane_zero3"):
+            for rows in (5, 3 * K * p):
+                add("grad_sync", strategy, dt, rows,
+                    kw={"num_buckets": K}, tag=f".r{rows}")
+        for strategy in ("lane_pipelined", "blocking"):
+            add("prefetch_allgather", strategy, dt, 3 * K,
+                kw={"num_blocks": K})
+        add("zero1_param_shard", "gradsync", dt, 3 * K * n, flat=True)
+        add("zero1_unshard", "gradsync", dt, 3 * K, flat=True)
+        add("zero3_param_shard", "gradsync", dt, 3 * K * p)
+        add("zero3_unshard", "gradsync", dt, 3 * K)
+    return out

@@ -3,13 +3,17 @@ whose own environment sets ``XLA_FLAGS=--xla_force_host_platform_device_
 count=<devices>`` (the test process never sets it).
 
   python tests/_repro_lane_side.py collectives OUT.npz   # 8 devices
+  python tests/_repro_lane_side.py zero OUT.npz          # 8 devices
   python tests/_repro_lane_side.py gradsync IN.npz OUT.npz   # 4 devices
+  python tests/_repro_lane_side.py gradsync_tree IN.npz OUT.npz  # 4
   python tests/_repro_lane_side.py train OUT.json ARGV...    # 4 devices
 
 ``collectives`` runs every case of ``_collective_grid`` through
-``repro``'s LaneComm on repro's own conformance meshes; ``gradsync``
+``repro``'s LaneComm on repro's own conformance meshes, ``zero`` its
+ZeRO cases (``zero_cases``); ``gradsync``
 runs ``LaneComm.grad_sync`` on a (pod 2 × data 2) mesh over the per-rank
-gradient trees in IN.npz; ``train`` runs ``repro.launch.train.main``
+gradient trees in IN.npz, ``gradsync_tree`` the same for nested model
+gradient trees; ``train`` runs ``repro.launch.train.main``
 with ARGV for each ``--arch`` given and records every step's loss at
 full precision (its log lines print 4 decimals).
 """
@@ -46,7 +50,22 @@ def _call(comm, topo, case):
     return fn
 
 
-def collectives(out_path):
+def _zero_call(comm, topo, case):
+    from repro.optim import gradsync as jgs
+
+    def fn(x):
+        coll = case["coll"]
+        if coll == "grad_sync":
+            return comm.grad_sync({"g": x}, strategy=case["strategy"],
+                                  **case["kw"])[0]
+        if coll == "prefetch_allgather":
+            return comm.prefetch_allgather(x, strategy=case["strategy"],
+                                           **case["kw"])
+        return getattr(jgs, coll)(x, topo, grid.ZERO_K)
+    return fn
+
+
+def collectives(out_path, cases_of=grid.cases, call=_call):
     out = {}
     for key in grid.TOPOS:
         shape, names, node_axes, lane = MESHES[key]
@@ -57,12 +76,12 @@ def collectives(out_path):
         sharding = NamedSharding(mesh, spec)
         n, N = grid.TOPOS[key]
         p = n * N
-        cases = grid.cases(key)
+        cases = cases_of(key)
         for dt in grid.DTYPES:
             idx = [k for k, c in enumerate(cases) if c["dtype"] == dt]
             xs = [grid.payload(cases[k], n, N, grid.seed_of(key, k))
                   for k in idx]
-            fns = [_call(comm, topo, cases[k]) for k in idx]
+            fns = [call(comm, topo, cases[k]) for k in idx]
             args = [jax.device_put(jnp.asarray(
                 x.reshape(p * x.shape[1], *x.shape[2:]), DT[dt]), sharding)
                 for x in xs]
@@ -71,7 +90,8 @@ def collectives(out_path):
                 in_specs=tuple(spec for _ in idx),
                 out_specs=tuple(spec for _ in idx)))
             for k, x, y in zip(idx, xs, run(*args)):
-                y = np.asarray(y).astype(x.dtype)
+                y = np.asarray(y)         # ints stay, floats as f32
+                y = y if y.dtype == np.int32 else y.astype(np.float32)
                 out[f"{key}/{cases[k]['name']}"] = y.reshape(
                     p, y.shape[0] // p, *y.shape[1:])
     np.savez(out_path, **out)
@@ -105,6 +125,41 @@ def gradsync(in_path, out_path):
     np.savez(out_path, **out)
 
 
+def gradsync_tree(in_path, out_path):
+    """``lane`` and ``lane_int8`` grad_sync of nested per-rank gradient
+    trees (IN.npz: ``save_tree`` paths, every leaf stacked (4, ...) by
+    global rank) on a (pod 2 × data 2) mesh, 3 buckets: OUT.npz holds
+    ``strategy/path`` -> (4, ...)."""
+    mesh = jax.make_mesh((2, 2), ("pod", "data"))
+    topo = LaneTopology(node_axes=("data",), lane_axis="pod")
+    spec = P(("pod", "data"))
+    sharding = NamedSharding(mesh, spec)
+    tree = {}
+    with np.load(in_path) as z:
+        for key in z.files:
+            *parents, leaf = key.split("/")
+            node = tree
+            for k in parents:
+                node = node.setdefault(k, {})
+            node[leaf] = z[key]
+    out = {}
+    for strategy in ("lane", "lane_int8"):
+        comm = LaneComm(topo, CommConfig(buckets=3), mesh=mesh)
+
+        def fn(t, comm=comm, strategy=strategy):
+            t = jax.tree.map(lambda a: a[0], t)
+            g = comm.grad_sync(t, strategy=strategy)
+            return jax.tree.map(lambda a: a[None], g)
+        args = jax.tree.map(
+            lambda a: jax.device_put(jnp.asarray(a), sharding), tree)
+        res = jax.jit(jax.shard_map(fn, mesh=mesh, in_specs=(spec,),
+                                    out_specs=spec))(args)
+        for path, v in jax.tree_util.tree_flatten_with_path(res)[0]:
+            name = "/".join(k.key for k in path)
+            out[f"{strategy}/{name}"] = np.asarray(v)
+    np.savez(out_path, **out)
+
+
 def train(out_path, argv):
     import repro.launch.train as jtrain
     archs = [argv[i + 1] for i, a in enumerate(argv) if a == "--arch"]
@@ -127,6 +182,10 @@ if __name__ == "__main__":
     cmd, *rest = sys.argv[1:]
     if cmd == "collectives":
         collectives(*rest)
+    elif cmd == "zero":
+        collectives(*rest, cases_of=grid.zero_cases, call=_zero_call)
+    elif cmd == "gradsync_tree":
+        gradsync_tree(*rest)
     elif cmd == "gradsync":
         gradsync(*rest)
     else:

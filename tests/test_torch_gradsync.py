@@ -9,7 +9,8 @@
   ``repro``'s on 4 host devices (a subprocess, ``_repro_lane_side.py``):
   exactly for integer-valued gradients, at 1e-6 for random ones, and
   ``lane_int8`` within its half-step bound of the exact mean.
-* The cells of later ROADMAP items raise NotImplementedError naming them.
+* The cells of later ROADMAP items raise NotImplementedError naming them;
+  the ZeRO cells resolve.
 """
 import dataclasses
 import subprocess
@@ -102,11 +103,12 @@ def test_bucket_schedule_emits_repros_wave_order(K, S):
 
 
 def test_flatten_casts_and_unflatten_writes_in_place():
+    """``repro``'s flat order: keys sorted, so ``blocks`` comes first."""
     tree = {"w": torch.tensor([[1.5, -2.0]], dtype=torch.bfloat16),
             "blocks": [{"b": torch.arange(3, dtype=torch.float32)}]}
     flat, spec = tgs._flatten_bucket(tree, pad_to=4)
     assert flat.dtype == torch.float32 and flat.shape == (8,)
-    assert flat.tolist() == [1.5, -2.0, 0.0, 1.0, 2.0, 0.0, 0.0, 0.0]
+    assert flat.tolist() == [0.0, 1.0, 2.0, 1.5, -2.0, 0.0, 0.0, 0.0]
     w, b = tree["w"], tree["blocks"][0]["b"]
     out = tgs._unflatten_bucket(flat * 2, spec)
     assert out is tree and tree["w"] is w and tree["blocks"][0]["b"] is b
@@ -190,23 +192,26 @@ def test_hw_defaults_are_an_h100_hosts():
 # ---------------------------------------------------------------------------
 
 def test_unported_cells_name_their_items():
+    """What stays unported names its item (``kv_splice``: 9b;
+    ``lane_quorum``, ``moe_route``: 10); the ZeRO cells resolve."""
     topo = LaneTopology(1, 1, lane_rank=0, node_rank=0, node_group=None,
                         lane_group=None, group=None, node_ranks=[0],
                         lane_ranks=[0], ranks=[0])
     comm = LaneComm(topo)
-    for strategy, item in (("lane_zero1", "item 9"),
-                           ("lane_zero3", "item 9"),
-                           ("lane_quorum", "item 10")):
+    for strategy, item in (("lane_quorum", "item 10"),):
         with pytest.raises(NotImplementedError, match=item):
             get_impl("grad_sync", strategy)
         with pytest.raises(NotImplementedError, match=item):
             CommConfig(strategy=strategy)
         with pytest.raises(NotImplementedError, match=item):
             comm.grad_sync({"g": torch.zeros(2)}, strategy=strategy)
+    for strategy in ("lane_zero1", "lane_zero3"):
+        assert get_impl("grad_sync", strategy).strategy == strategy
+        assert CommConfig(strategy=strategy).strategy == strategy
+    for strategy in ("lane_pipelined", "blocking"):
+        assert get_impl("prefetch_allgather", strategy).strategy == strategy
     x = torch.zeros(4)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        comm.prefetch_allgather(x)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 9b"):
         comm.kv_splice(x, small=x, slot=0)
     with pytest.raises(NotImplementedError, match="item 10"):
         comm.moe_route(x)
@@ -214,8 +219,10 @@ def test_unported_cells_name_their_items():
         get_impl("allreduce", "lane_zero9")
     for strategy in ("native", "lane", "lane_pipelined", "lane_int8"):
         assert comm.param_layout(strategy) == "replicated"
+    assert comm.param_layout("lane_zero1") == "zero1"
+    assert comm.param_layout("lane_zero3") == "zero3"
     with pytest.raises(ValueError, match="no param layout"):
-        comm.param_layout("lane_zero3")
+        comm.param_layout("lane_quorum")
 
 
 # ---------------------------------------------------------------------------

@@ -338,11 +338,12 @@ def test_remat_dots_and_gradsync_name_their_items(zoo):
         RunConfig(model=tc, remat="some")
     with pytest.raises(ValueError, match="accum_dtype"):
         RunConfig(model=tc, accum_dtype="float16")
-    for strategy, item in (("lane_zero1", "item 9"),
-                           ("lane_zero3", "item 9"),
-                           ("lane_quorum", "item 10"), ("auto", "item 10")):
+    for strategy, item in (("lane_quorum", "item 10"), ("auto", "item 10")):
         with pytest.raises(NotImplementedError, match=item):
             RunConfig(model=tc, gradsync=strategy)
+    for strategy in ("lane_zero1", "lane_zero3"):
+        assert RunConfig(model=tc, gradsync=strategy, fsdp_prefetch=-1,
+                         fsdp_regather=True).gradsync == strategy
     with pytest.raises(ValueError, match="unknown gradsync"):
         RunConfig(model=tc, gradsync="lane_zero9")
     for strategy in ("native", "lane", "lane_pipelined", "lane_int8"):
@@ -374,8 +375,8 @@ def test_train_main_microbatch_and_remat_on_cpu():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--ckpt", "runs/x"], "item 9"),
-    (["--ckpt-every", "5"], "item 9"),
+    (["--ckpt", "runs/x"], "item 9b"),
+    (["--ckpt-every", "5"], "item 9b"),
     (["--fault-plan", "seed:1"], "item 10"),
     (["--tune"], "item 10"),
     (["--tuning-cache", "t.json"], "item 10"),
@@ -385,11 +386,7 @@ def test_train_main_microbatch_and_remat_on_cpu():
     (["--lose-chips", "1"], "item 10"),
     (["--quorum-staleness", "3"], "item 10"),
     (["--max-restarts", "0"], "item 10"),
-    (["--gradsync", "lane_zero3"], "item 9"),
-    (["--fsdp-prefetch", "2"], "item 9"),
-    (["--fsdp-regather"], "item 9"),
     (["--gradsync", "lane_quorum"], "item 10"),
-    (["--gradsync", "lane_zero1"], "item 9"),
     (["--remat", "dots"], "item 6"),
 ])
 def test_train_main_unported_flags_raise(flags, item):
@@ -397,6 +394,29 @@ def test_train_main_unported_flags_raise(flags, item):
         train.main(["--arch", "llama3.2-3b", "--smoke", "--steps", "1",
                     "--batch", "2", "--seq", "8", "--device", "cpu",
                     *flags])
+
+
+ONE = ["--arch", "llama3.2-3b", "--smoke", "--steps", "2", "--batch", "2",
+       "--seq", "8", "--device", "cpu"]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--gradsync", "lane_zero1"],
+    ["--gradsync", "lane_zero3"],
+    ["--fsdp-prefetch", "2"],
+    ["--fsdp-regather"],
+])
+def test_train_main_zero_flags_accepted(flags):
+    """The ZeRO flags are honoured as ``repro`` honours them on one
+    process (a single batch axis): ``lane_zero1`` is the replicated
+    step, ``lane_zero3`` refuses with ``repro``'s message, and the
+    prefetch flags change nothing outside ``lane_zero3``.  (Across ranks:
+    tests/test_torch_train_zero.py.)"""
+    if flags == ["--gradsync", "lane_zero3"]:
+        with pytest.raises(ValueError, match="distinct lane and node"):
+            train.main(ONE + flags)
+        return
+    assert train.main(ONE + flags) == train.main(ONE)
 
 
 def test_train_main_pods_in_one_process_raises_repros_error():
