@@ -133,17 +133,45 @@ and the script exits non-zero:
      the replicated step's for lane_zero1, to "masters"' for lane_zero3
      and to lane_zero3's for its other modes (see ZERO_GATE); a layout
      that does not fit prints its OOM, and then every run goes again at
-     --microbatch 2, where an OOM fails the phase.
+     --microbatch 2, where an OOM fails the phase;
+ 10. checkpoints (``checkpoint/``, ``launch/steps.py``'s layouts and
+     restores, ``launch/train.py``'s ``--ckpt``) and serving from them
+     under ``lane_zero3`` (``serve/steps.py``, ``scan_stack_cached``,
+     ``kv_splice``, ``load_serve_params``), on phase 9's one-rank world,
+     its checkpoint directories under build/ removed at the end, also on
+     failure; free disk and host RAM printed first:
+     (a) llama3.2-3b (lane_zero3) and mamba2-780m (replicated,
+     lane_zero1, lane_zero3) at full width cut to 2 layers, f32: 2 steps,
+     the state saved from the card and from a CPU copy (identical
+     ``arr_<i>.npy`` files and manifest step, layout and leaves),
+     restored into its own layout (equal to the state saved) with step 3
+     from it equal to the uninterrupted step 3, and into the other
+     layouts (mamba2 every pair, llama lane_zero3 into replicated) with
+     the canonical form bit-identical; one flipped byte: an explicit step
+     raises CheckpointCorruptError, step=None falls back;
+     (b) mamba2-780m, bf16, 4 x 1024, ``launch.train.run --gradsync
+     lane_zero3 --ckpt --ckpt-every 2`` for 4 steps, step 4 removed, the
+     run again (resumed at 2): steps 3-4 equal; per save the loop's
+     blocking ms, the writer's s, GB and GB/s, and the restore's s; the
+     step-4 checkpoint restored into the replicated bf16 layout (every
+     parameter its f32 master cast) and one native step from it, finite;
+     (c) ``load_serve_params`` on that checkpoint, 8 ``mixed`` requests,
+     4 slots, under replicated and under lane_zero3 with the ``lane`` and
+     the ``native`` kv_splice: identical tokens, K2 48 per prefill under
+     each; llama3.2-3b from phase 5's weights under lane_zero3: phase 5's
+     tokens, K1 224; prefill ms at T=512, decode ms, layer gathers per
+     decode step (L) and peak memory per hosting; phase 10's seconds.
 
 Both kernels choose by dtype inside their C entry point: bf16 (the
 serving and training paths) runs on the tensor cores, f32 on the CUDA
 cores.  The line before the last is a JSON object with K1's and K2's
-numbers (launches per path, the training runs included); the last line
-is ``{"ok": true, "device": {...}}``.
+numbers (launches per path, the training runs and phase 10 included);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import dataclasses
+import filecmp
 import json
 import pathlib
 import re
@@ -185,6 +213,10 @@ from repro_torch.comm.impls import grad_sync_buckets  # noqa: E402
 from repro_torch.core import ref as oracles  # noqa: E402
 from repro_torch.core.lane import LaneTopology  # noqa: E402
 from repro_torch.core.pipeline import pipelined_allgather_lane  # noqa: E402
+from repro_torch.checkpoint import (REPLICATED, CheckpointCorruptError,  # noqa: E402
+                                    save_checkpoint)
+from repro_torch.checkpoint.store import host_array  # noqa: E402
+from repro_torch.serve import load_serve_params  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12         # dense tensor-core peak, bf16
@@ -1837,8 +1869,8 @@ def phase_lane_cpu() -> None:
         f"equal on every rank")
 
 
-def phase_lanes(name, first_loss) -> dict:
-    """Phases 8 and 9 on one NCCL world (8d on the CPU after it)."""
+def phase_lanes(name, first_loss, served) -> dict:
+    """Phases 8, 9 and 10 on one NCCL world (8d on the CPU after it)."""
     topo, init = timed("8a lane world", phase_lane_world)
     try:
         timed("8b lane conformance", phase_lane_conformance, topo)
@@ -1847,6 +1879,8 @@ def phase_lanes(name, first_loss) -> dict:
             timed("9a ZeRO card vs CPU", phase_zero_check, topo)
             launches.update(timed("9b ZeRO at full width", phase_zero_train,
                                   topo, name, first_loss))
+        launches.update(timed("10 checkpoints and lane_zero3 serving",
+                              phase_ckpt, topo, name, served))
     finally:
         dist.destroy_process_group()
         init.unlink(missing_ok=True)
@@ -1941,7 +1975,7 @@ def zero_run(cfg, mode, topo, params, *, steps_n, batch, seq, device, opt,
                         fsdp_regather=regather, microbatch=microbatch)
         comm = LaneComm(topo, CommConfig.from_run(run))
         step = steps.build_train_step(run, opt, comm, single=False)
-        state, opt_state = steps.init_lane_train_state(run, params, comm,
+        state, opt_state, _ = steps.init_lane_train_state(run, params, comm,
                                                        single=False,
                                                        device=device)
     del params
@@ -2129,6 +2163,424 @@ def phase_zero_train(topo, name, first_loss) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: checkpoints, and serving from them under lane_zero3
+# ---------------------------------------------------------------------------
+
+# mode: gradsync
+CKPT_MODES = {"replicated": "native", "lane_zero1": "lane_zero1",
+              "lane_zero3": "lane_zero3"}
+CKPT_ARCH = "mamba2-780m"
+# 10a's layouts per model (phase_ckpt_exact says why llama takes one)
+CKPT_EXACT = {"llama3.2-3b": ("lane_zero3",),
+              "mamba2-780m": tuple(CKPT_MODES)}
+CKPT_ARGV = ["--arch", CKPT_ARCH, "--batch", str(TRAIN_BATCH), "--seq",
+             str(TRAIN_SEQ), "--device", "cuda", "--log-every", "1"]
+SERVE_ARCH = "llama3.2-3b"
+SERVE_T = 512
+
+
+def _ckpt_root() -> pathlib.Path:
+    return pathlib.Path(__file__).resolve().parent / "build" / "ckpt"
+
+
+def canonical(d, cfg):
+    """A checkpoint's state in the replicated form (CPU tensors)."""
+    man, state, _ = steps.load_canonical_state(str(d), cfg)
+    return steps.state_to_replicated(cfg, man["layout"], state)
+
+
+def host_canonical(tree, layout, cfg):
+    """A checkpoint tree (``state_to_host``'s) in the replicated form."""
+    canon = _tree.unflatten(tree, [layout.to_canonical(p, host_array(leaf))
+                                   for p, leaf in _tree.flatten(tree)])
+    return steps.state_to_replicated(cfg, layout.manifest_entry(), canon)
+
+
+def states_equal(a, b) -> bool:
+    """Two states (any layout, any device; ints for the step counts) hold
+    the same leaves bit for bit."""
+    la, lb = _tree.leaves(a), _tree.leaves(b)
+    return len(la) == len(lb) and all(
+        torch.equal(x, y) if torch.is_tensor(x) else x == y
+        for x, y in zip(la, lb))
+
+
+def same_files(a, b) -> list:
+    """What differs between two committed steps: arr_<i>.npy files, and
+    the manifests' step, layout and leaves."""
+    ma, mb = (json.loads((d / "manifest.json").read_text()) for d in (a, b))
+    bad = [k for k in ("step", "layout", "leaves") if ma[k] != mb[k]]
+    return bad + [i for i in range(len(ma["leaves"]))
+                  if not filecmp.cmp(a / f"arr_{i}.npy", b / f"arr_{i}.npy",
+                                     shallow=False)]
+
+
+def ckpt_layout(cfg, mode):
+    if mode == "lane_zero1":
+        return steps.zero1_checkpoint_layout(init_model(cfg, device="meta"),
+                                             1)
+    if mode == "lane_zero3":
+        return steps.zero3_checkpoint_layout(cfg, 1, 1)
+    return REPLICATED
+
+
+def phase_ckpt_exact(topo, root) -> None:
+    """10a: llama3.2-3b and mamba2-780m at full width cut to CHECK_LAYERS
+    layers, f32, 1 x CHECK_T tokens, in the layouts of CKPT_EXACT
+    (``single=False`` on the 1 x 1 topology): 2 steps on the card, the
+    state saved from the card and, copied to the CPU, into a second
+    directory (identical files and manifests); restored on the card into
+    its own layout (equal to the state saved, leaf for leaf) and step 3
+    taken from it against the uninterrupted step 3 (exact; if not, a
+    second uninterrupted run says how far apart two runs are, and the
+    resumed step may be no further); restored into the other layouts
+    (mamba2-780m: every pair; llama3.2-3b: lane_zero3 into replicated),
+    each restore's canonical form bit-identical to the saved one's; and
+    on mamba2-780m's lane_zero3 checkpoint one flipped byte: an explicit
+    step raises CheckpointCorruptError, step=None falls back to the
+    earlier step.  llama3.2-3b's 2-layer state is 7.2 GB (its 394 M-row
+    embedding and its moments), and the host moves ~1 GB/s on the card's
+    machine (PERF.md §5), so it takes lane_zero3 alone, the
+    layout whose shards it exercises; mamba2-780m (1.3 GB) takes all
+    three."""
+    opt = AdamWConfig(warmup_steps=0, total_steps=3)
+    modes = list(CKPT_MODES)
+    bad = []
+    for arch in TRAIN_ARCHS:
+        cfg = dataclasses.replace(resolve(arch), num_layers=CHECK_LAYERS,
+                                  dtype="float32")
+        loader = make_loader(cfg, CHECK_T, 1, seed=0)
+        batches = [tuple(torch.as_tensor(a, device="cuda")
+                         for a in loader.batch_at(s)) for s in range(3)]
+        params0 = init_model(cfg, seed=0, device="cuda")
+        for mode in CKPT_EXACT[arch]:
+            run = RunConfig(model=cfg, gradsync=CKPT_MODES[mode])
+            comm = LaneComm(topo, CommConfig.from_run(run))
+            step = steps.build_train_step(run, opt, comm, single=False)
+
+            def train(stop):
+                p, o, layout = steps.init_lane_train_state(
+                    run, _tree.tree_map(torch.clone, params0), comm,
+                    single=False, device="cuda")
+                losses = []
+                for s in range(stop):
+                    loss, p, o = step(p, o, *batches[s])
+                    losses.append(float(loss))
+                return losses, p, o, layout
+            losses, p, o, layout = train(2)
+            d = root / arch / mode
+            t0 = time.perf_counter()
+            save_checkpoint(str(d / "card"), 2,
+                            steps.state_to_host(run, layout, p, o, comm),
+                            layout)
+            t_card = time.perf_counter() - t0
+            cpu = lambda tree: _tree.tree_map(
+                lambda t: t.detach().cpu() if torch.is_tensor(t) else t, tree)
+            save_checkpoint(str(d / "cpu"), 2, steps.state_to_host(
+                run, layout, cpu(p), cpu(o), comm), layout)
+            diff = same_files(d / "card" / "step_2", d / "cpu" / "step_2")
+            shutil.rmtree(d / "cpu")
+            t0 = time.perf_counter()
+            (rp, ro), _ = steps.restore_lane_train_state(
+                str(d / "card"), run, layout, comm, device="cuda")
+            t_rest = time.perf_counter() - t0
+            same = states_equal((rp, ro), (p, o))
+            loss3 = float(step(p, o, *batches[2])[0])
+            loss3r = float(step(rp, ro, *batches[2])[0])
+            del p, o, rp, ro
+            apart = abs(loss3r - loss3)
+            noise = 0.0 if apart == 0 else abs(loss3 - train(3)[0][2])
+            log("ckpt", f"{arch} {CHECK_LAYERS} layers at full width, f32, "
+                f"{mode}: 2 steps {[round(x, 6) for x in losses]}; saved "
+                f"from the card in {t_card:.2f} s, from a CPU copy: "
+                + ("identical files and manifest" if not diff
+                   else f"DIFFERENT {diff}") + f"; restored in "
+                f"{t_rest:.2f} s: " + ("equal to the state saved" if same
+                                       else "DIFFERENT from the state saved")
+                + f"; resumed step 3 {loss3r!r} vs uninterrupted {loss3!r}: "
+                f"apart {apart:.3e}" + (f" (two uninterrupted runs "
+                                        f"{noise:.3e})" if apart else ""))
+            if diff or not same or apart > noise:
+                bad.append(f"{arch} {mode}: files {diff}, restore equal "
+                           f"{same}, step 3 apart {apart:.3e}")
+            torch.cuda.empty_cache()
+        pairs = [(a, b) for a in modes for b in modes if a != b] \
+            if arch == CKPT_ARCH else [("lane_zero3", "replicated")]
+        for src in dict.fromkeys(a for a, _ in pairs):
+            d = root / arch / src / "card"
+            want = canonical(d, cfg)
+            for tgt in (b for a, b in pairs if a == src):
+                run = RunConfig(model=cfg, gradsync=CKPT_MODES[tgt])
+                comm = LaneComm(topo, CommConfig.from_run(run))
+                layout = ckpt_layout(cfg, tgt)
+                t0 = time.perf_counter()
+                (p, o), _ = steps.restore_lane_train_state(
+                    str(d), run, layout, comm, device="cuda")
+                t_rest = time.perf_counter() - t0
+                got = host_canonical(steps.state_to_host(run, layout, p, o,
+                                                         comm), layout, cfg)
+                del p, o
+                same = states_equal(got, want)
+                log("ckpt", f"{arch} {src} checkpoint restored as {tgt} on "
+                    f"the card in {t_rest:.2f} s: canonical form "
+                    + ("bit-identical" if same else "DIFFERENT"))
+                if not same:
+                    bad.append(f"{arch} {src} -> {tgt}: canonical form "
+                               f"differs")
+            del want
+        if arch == CKPT_ARCH:
+            d = root / arch / "lane_zero3" / "card"
+            shutil.copytree(d / "step_2", d / "step_1")
+            f = d / "step_2" / "arr_0.npy"
+            raw = bytearray(f.read_bytes())
+            raw[-1] ^= 0xFF
+            f.write_bytes(bytes(raw))
+            run = RunConfig(model=cfg, gradsync="lane_zero3")
+            comm = LaneComm(topo, CommConfig.from_run(run))
+            layout = ckpt_layout(cfg, "lane_zero3")
+            try:
+                steps.restore_lane_train_state(str(d), run, layout, comm,
+                                               step=2, device="cuda")
+                raised = None
+            except CheckpointCorruptError as e:
+                raised = str(e)
+            (p, o), got = steps.restore_lane_train_state(
+                str(d), run, layout, comm, device="cuda")
+            del p, o
+            log("ckpt", f"{arch} lane_zero3, one byte of step 2's arr_0.npy "
+                f"flipped: explicit step 2 "
+                + (f"raised CheckpointCorruptError ({raised[:60]}...)"
+                   if raised else "DID NOT RAISE")
+                + f"; step=None restored step {got}")
+            if raised is None or got != 1:
+                bad.append(f"{arch}: the corrupt-leaf control failed "
+                           f"(raised {raised is not None}, fell back to "
+                           f"{got})")
+        shutil.rmtree(root / arch, ignore_errors=True)
+        torch.cuda.empty_cache()
+    if bad:
+        raise RuntimeError("; ".join(bad))
+
+
+def _host_room(path) -> str:
+    free = shutil.disk_usage(path).free / 1e9
+    avail = "not measured"
+    try:
+        for line in pathlib.Path("/proc/meminfo").read_text().splitlines():
+            if line.startswith("MemAvailable:"):
+                avail = f"{int(line.split()[1]) * 1024 / 1e9:.1f} GB"
+    except OSError:
+        pass
+    return f"free disk {free:.1f} GB, host RAM available {avail}"
+
+
+def phase_ckpt_train(topo, root, name) -> dict:
+    """10b: mamba2-780m at full width, bf16, TRAIN_BATCH x TRAIN_SEQ,
+    through ``launch.train.run --gradsync lane_zero3`` on the 1 x 1
+    topology: 4 steps with --ckpt-every 2 (checkpoints at 2 and 4), then
+    step 4 removed and the run again: it resumes at step 2 and its steps
+    3-4 must equal the first run's (exactly; if not, a second
+    uninterrupted run says how far apart two runs are, and the resumed
+    losses may be no further).  Per
+    save the loop's blocking ms (the copy to the host), the writer's
+    seconds, GB and GB/s, and the restore's seconds.  Then the step-4
+    zero3 checkpoint restored into the replicated bf16 layout: every
+    parameter equals its f32 master cast to its dtype (the resumed run's
+    parameters, gathered from the masters on the card), and one
+    --gradsync native step from it (the batch of step 5) has a finite
+    loss."""
+    cfg = resolve(CKPT_ARCH)
+    d = root / "train"
+    log("ckpt", f"{name} | before 10b: {_host_room(root)}")
+    argv = [*CKPT_ARGV, "--steps", "4", "--gradsync", "lane_zero3"]
+    fa.launches = k2.launches = 0
+    st = {}
+    first = train.run([*argv, "--ckpt", str(d), "--ckpt-every", "2"],
+                      topo=topo, stats=st)[0]
+    shutil.rmtree(d / "step_4")
+    st2 = {}
+    resumed, full4, _ = train.run(
+        [*argv, "--ckpt", str(d), "--ckpt-every", "2"], topo=topo,
+        stats=st2)
+    torch.cuda.synchronize()
+    apart = max(abs(a - b) for a, b in zip(resumed, first[2:]))
+    second = train.run(argv, topo=topo)[0] if apart else first
+    noise = max(abs(a - b) for a, b in zip(first[2:], second[2:]))
+    for rec in st["saves"] + st2["saves"]:
+        gb = rec["bytes"] / 1e9
+        log("ckpt", f"{name} | {CKPT_ARCH} lane_zero3 save at step "
+            f"{rec['step']}: loop blocked {rec['copy_s'] * 1e3:.1f} ms (the "
+            f"copy to the host), writer {rec['write_s']:.2f} s, {gb:.2f} GB, "
+            f"{gb / rec['write_s']:.2f} GB/s")
+    log("ckpt", f"{name} | {CKPT_ARCH} lane_zero3, bf16, {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}: uninterrupted {first}; restored step 2 in "
+        f"{st2['restore_s']:.2f} s and resumed: {resumed} (apart "
+        f"{apart:.3e}" + (f"; a second uninterrupted run {second}, "
+                          f"{noise:.3e} apart" if apart else "") + ")")
+    if len(resumed) != 2 or apart > noise:
+        raise RuntimeError(f"the resumed run's losses {resumed} depart "
+                           f"from the uninterrupted {first[2:]}")
+    # the step-4 zero3 checkpoint into the replicated bf16 layout, and one
+    # --gradsync native step from it (the driver's step on the batch of
+    # step 5)
+    run = RunConfig(model=cfg, gradsync="native")
+    comm = LaneComm(topo, CommConfig.from_run(run))
+    t0 = time.perf_counter()
+    (p, o), got = steps.restore_lane_train_state(str(d), run, REPLICATED,
+                                                 comm, step=4, device="cuda")
+    t_cross = time.perf_counter() - t0
+    # the resumed run's last parameters are its f32 masters cast to each
+    # leaf's dtype on the card (the rows gathered and cast by the
+    # ZeRO-3 step's own gather)
+    same = states_equal([p], [full4])
+    del full4
+    opt = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=5)
+    step = steps.build_train_step(run, opt, comm, single=False)
+    toks, labels = (torch.as_tensor(a, device="cuda") for a in make_loader(
+        cfg, TRAIN_SEQ, TRAIN_BATCH, seed=0).batch_at(4))
+    native = float(step(p, o, toks, labels)[0])
+    del p, o
+    torch.cuda.synchronize()
+    log("ckpt", f"{name} | the step-{got} lane_zero3 checkpoint restored as "
+        f"the replicated bf16 layout in {t_cross:.2f} s: every parameter "
+        + ("equals" if same else "DIFFERS from")
+        + f" its f32 master cast to its dtype (bf16; A_log, D and dt_bias "
+        f"f32; the resumed run's gathered parameters); one native step "
+        f"from it: {native!r}; K1/K2 launches in 10b "
+        f"{(fa.launches, k2.launches)}")
+    if not same or not np.isfinite(native):
+        raise RuntimeError("the cross-layout restore into the replicated "
+                           "bf16 run failed")
+    return {"ckpt train": {"flash_attention": fa.launches,
+                           "ssd": k2.launches}}
+
+
+def serve_perf(cfg, batcher, name, label):
+    """Prefill ms at T=SERVE_T, decode ms at SLOTS slots, layer gathers
+    per decode step, under ``batcher``'s hosting."""
+    step, hosted = batcher.step, batcher.hosted
+    g = torch.Generator(device="cuda").manual_seed(1)
+    toks = torch.randint(1, cfg.vocab_size, (1, SERVE_T), generator=g,
+                         device="cuda")
+    pre = host_ms(lambda: step.prefill(hosted, toks, SERVE_T, None), reps=3)
+    tok = np.zeros((SLOTS, 1), np.int64)
+    dec = host_ms(lambda: step.decode(hosted, tok, batcher.state), reps=10,
+                  warmup=2)
+    g0 = step.gathers()
+    step.decode(hosted, tok, batcher.state)
+    per = step.gathers() - g0
+    log("ckpt", f"{name} | {cfg.name} {label}: prefill T={SERVE_T} "
+        f"{pre:.3f} ms, decode ({SLOTS} slots) {dec:.3f} ms/step, layer "
+        f"gathers per decode step {per}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return per
+
+
+def serve_hosted(cfg, params, hosting, topo, kv, max_seq=1024):
+    """Serve the path's requests under ``hosting``: (tokens, launches,
+    the batcher)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    batcher = ContinuousBatcher(params, cfg, slots=SLOTS, max_seq=max_seq,
+                                device="cuda", hosting=hosting,
+                                topo=topo if hosting == "lane_zero3" else None,
+                                kv_strategy=kv)
+    reqs = scenario(cfg, max_seq)
+    fa.launches = k2.launches = 0
+    _, stats = batcher.run(reqs)
+    torch.cuda.synchronize()
+    if stats["hosting"] != hosting:
+        raise RuntimeError(f"asked for {hosting}, served {stats['hosting']}")
+    return [list(r.out) for r in reqs], {"flash_attention": fa.launches,
+                                         "ssd": k2.launches}, batcher
+
+
+def phase_ckpt_serve(topo, root, name, served) -> dict:
+    """10c: ``load_serve_params`` on 10b's step-4 checkpoint, served at
+    full width (8 ``mixed`` requests, 4 slots) under replicated and under
+    lane_zero3 with the ``lane`` and the ``native`` kv_splice: the same
+    tokens, K2 launches equal and L per prefill; then llama3.2-3b from
+    phase 5's seed-0 bf16 weights under lane_zero3: phase 5's replicated
+    tokens, K1 L per prefill.  Each model's prefill ms at T=SERVE_T,
+    decode ms, layer gathers per decode step (L under lane_zero3) and
+    peak memory under both hostings (llama3.2-3b's replicated ones are
+    phase 5's and 6's lines of the same run)."""
+    out, bad = {}, []
+    cfg = resolve(CKPT_ARCH)
+    params, step4 = load_serve_params(str(root / "train"), cfg, step=4,
+                                      device="cuda")
+    shutil.rmtree(root / "train", ignore_errors=True)
+    want = expected_launches(cfg, N_REQ)
+    tokens = {}
+    for hosting, kv in (("replicated", "lane"), ("lane_zero3", "lane"),
+                        ("lane_zero3", "native")):
+        label = hosting + (f" (kv_splice {kv})" if hosting == "lane_zero3"
+                           else "")
+        tokens[label], launches, batcher = serve_hosted(cfg, params, hosting,
+                                                        topo, kv)
+        out[f"ckpt serve {CKPT_ARCH} {label}"] = launches
+        log("ckpt", f"{name} | {CKPT_ARCH} from the step-{step4} checkpoint, "
+            f"{label}: launches {launches} (want {want})")
+        if launches != want:
+            bad.append(f"{CKPT_ARCH} {label}: launches {launches}")
+        if kv == "lane":
+            per = serve_perf(cfg, batcher, name, label)
+            if hosting == "lane_zero3" and per != cfg.num_layers:
+                bad.append(f"{CKPT_ARCH}: {per} gathers per decode step")
+        del batcher
+    ref_tokens = tokens["replicated"]
+    for label, toks in tokens.items():
+        if toks != ref_tokens:
+            bad.append(f"{CKPT_ARCH} {label}: tokens differ from replicated")
+    log("ckpt", f"{name} | {CKPT_ARCH}: tokens identical under every "
+        f"hosting: {all(t == ref_tokens for t in tokens.values())}")
+    del params
+    cfg = resolve(SERVE_ARCH)
+    want = expected_launches(cfg, N_REQ)
+    for hosting in ("lane_zero3",):
+        params = init_model(cfg, seed=0, device="cuda")
+        toks, launches, batcher = serve_hosted(cfg, params, hosting, topo,
+                                               "lane")
+        del params
+        if hosting == "lane_zero3":
+            out[f"ckpt serve {SERVE_ARCH} lane_zero3"] = launches
+        per = serve_perf(cfg, batcher, name, hosting)
+        log("ckpt", f"{name} | {SERVE_ARCH} {hosting}: launches {launches} "
+            f"(want {want}); tokens "
+            + ("equal phase 5's" if toks == served[SERVE_ARCH]
+               else "DIFFER from phase 5's"))
+        if toks != served[SERVE_ARCH] or launches != want:
+            bad.append(f"{SERVE_ARCH} {hosting}: tokens or launches")
+        if hosting == "lane_zero3" and per != cfg.num_layers:
+            bad.append(f"{SERVE_ARCH}: {per} gathers per decode step")
+        del batcher
+    if bad:
+        raise RuntimeError("; ".join(bad))
+    return out
+
+
+def phase_ckpt(topo, name, served) -> dict:
+    """Phase 10; its checkpoint directories (under build/, ignored by
+    git) are removed at the end, also on failure."""
+    root = _ckpt_root()
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    try:
+        with torch.enable_grad():
+            timed("10a checkpoint exactness", phase_ckpt_exact, topo, root)
+            launches = timed("10b train, checkpoint, resume",
+                             phase_ckpt_train, topo, root, name)
+        torch.cuda.empty_cache()
+        launches.update(timed("10c serving from the checkpoint",
+                              phase_ckpt_serve, topo, root, name, served))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        log("time", f"phase 10: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def timed(label, fn, *args, **kw):
     t0 = time.perf_counter()
     out = fn(*args, **kw)
@@ -2143,11 +2595,12 @@ def main() -> int:
     timed("build", phase_build)
     k1_err = timed("K1 against its plain version", phase_kernel)
     k2_err = timed("K2 against its plain version", phase_ssd)
-    launches = {}
+    launches, served = {}, {}
     for arch in PATHS:
         cfg = resolve(arch)
         batcher, stats, launches[arch], reqs = timed(
             f"serve {arch}", phase_serve, cfg, MAX_SEQ.get(arch, 1024))
+        served[arch] = [list(r.out) for r in reqs]
         timed(f"perf {arch}", phase_perf, cfg, name, batcher, stats)
         if arch == "llama3.2-3b":
             k1 = timed("time K1", time_k1, name, 1, cfg.num_heads,
@@ -2185,8 +2638,8 @@ def main() -> int:
                 f"train {arch}", phase_train, resolve(arch), name)
             first_loss[arch] = losses[0]
             torch.cuda.empty_cache()
-    launches.update(timed("lane collectives and ZeRO", phase_lanes, name,
-                          first_loss))
+    launches.update(timed("lane collectives, ZeRO and checkpoints",
+                          phase_lanes, name, first_loss, served))
     log("time", f"total: {time.perf_counter() - t_start:.1f} s")
     by_path = {k: {a: n[k] for a, n in launches.items()}
                for k in ("flash_attention", "ssd")}

@@ -1,4 +1,5 @@
-"""Parameter trees: nested dicts and lists with tensors for leaves.
+"""Parameter trees: nested dicts, lists and tuples with tensors (or
+numpy arrays, or ints) for leaves.
 
 ``repro`` keeps its trees as JAX pytrees; the port's are plain dicts, and
 a list where ``repro`` stacks layers along a leading axis (``"blocks"``).
@@ -13,7 +14,9 @@ the int8 chunks, the ZeRO shards and their decay masks) is in this order.
 A list under the key ``STACK_KEY`` (``"blocks"``, at the top and under
 the audio ``"encoder"``) is a layer stack: that is the one rule for which
 paths are stacks, and ``bridge`` maps paths with it (``repro_path``).
-Any other list is walked in its own order, as JAX walks a list.
+Any other list, and every tuple, is walked in its own order, as JAX
+walks them; the checkpoint store writes its ``(params, opt_state)``
+tuples in this order too.
 """
 from __future__ import annotations
 
@@ -22,9 +25,9 @@ STACK_KEY = "blocks"
 
 def flatten(tree, prefix=()) -> list:
     """``[(path, leaf), ...]`` in ``repro``'s flat order (module
-    docstring).  A path is the tuple of dict keys and list indices from
-    the root, a layer's index included."""
-    if isinstance(tree, list):
+    docstring).  A path is the tuple of dict keys and list and tuple
+    indices from the root, a layer's index included."""
+    if isinstance(tree, (list, tuple)):
         return [pl for i, v in enumerate(tree)
                 for pl in flatten(v, prefix + (i,))]
     if not isinstance(tree, dict):
@@ -49,14 +52,15 @@ def leaves(tree) -> list:
     return [leaf for _, leaf in flatten(tree)]
 
 
-def _skeleton(tree):
-    """``tree``'s dicts (in their own key order) and lists, None for its
-    leaves."""
+def _build(tree, by_path: dict, prefix=()):
+    """``tree``'s dicts (in their own key order), lists and tuples, with
+    ``by_path[path]`` for the leaf at each path."""
     if isinstance(tree, dict):
-        return {k: _skeleton(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_skeleton(v) for v in tree]
-    return None
+        return {k: _build(v, by_path, prefix + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_build(v, by_path, prefix + (i,))
+                          for i, v in enumerate(tree))
+    return by_path[prefix]
 
 
 def unflatten(tree, new_leaves):
@@ -66,12 +70,7 @@ def unflatten(tree, new_leaves):
     if len(new_leaves) != len(paths):
         raise ValueError(f"{len(new_leaves)} leaves for a tree of "
                          f"{len(paths)}")
-    if paths == [()]:
-        return new_leaves[0]
-    out = _skeleton(tree)
-    for path, leaf in zip(paths, new_leaves):
-        set_path(out, path, leaf)
-    return out
+    return _build(tree, dict(zip(paths, new_leaves)))
 
 
 def tree_map(fn, tree, *rest):

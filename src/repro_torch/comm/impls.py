@@ -23,14 +23,17 @@ Registration legend per collective:
                    the ZeRO-3 per-layer weight re-gather: the §5
                    pipelined AG(lane)→AG(node), or the monolithic
                    blocking comparator
+  kv_splice        the serving KV distribution into a slot-sharded
+                   cache: a mask-to-root all-reduce (native) or the lane
+                   bcast (lane), then the local splice
 
-The cells of later ROADMAP items (``kv_splice``: item 9b;
-``lane_quorum`` and ``moe_route``: item 10) stay unregistered; resolving
-one raises ``NotImplementedError`` naming its item
-(``registry.UNPORTED``).
+The cells of later ROADMAP items (``lane_quorum`` and ``moe_route``:
+item 10) stay unregistered; resolving one raises
+``NotImplementedError`` naming its item (``registry.UNPORTED``).
 """
 from __future__ import annotations
 
+import torch
 import torch.distributed as dist
 
 from repro_torch import _tree
@@ -367,6 +370,61 @@ def _prefetch_blocking(comm, shard, *, num_blocks=None):
     of the pipelined gather, never auto-selected."""
     B = _resolve_blocks(comm, shard.shape[0], num_blocks)
     return zero3_unshard(shard, comm.topo, B)
+
+
+# ---------------------------------------------------------------------------
+# kv_splice: the serving KV / state distribution collective
+# ---------------------------------------------------------------------------
+#
+# Continuous batching with the slots sharded over the processes needs one
+# communication: after a batch-1 prefill (run on every process, the
+# root's copy canonical) the fresh cache leaf must land in slot ``slot``
+# of the slot-sharded cache, which lives on exactly one process.  That is
+# a rooted broadcast of the leaf and a local splice.  Slot ownership
+# follows the global rank, as ``scatter``'s blocks: process r owns slots
+# [r·B_local, (r+1)·B_local).
+
+def _splice_local(comm, big, small, slot: int, batch_axis: int):
+    """Write ``small`` (batch 1 along ``batch_axis``) into global slot
+    ``slot`` of this process's block of slots ``big``, in place, when it
+    owns the slot; leave ``big`` as it is otherwise.  Returns ``big``."""
+    B_local = big.shape[batch_axis]
+    local = int(slot) - comm.topo.global_rank() * B_local
+    if 0 <= local < B_local:
+        big.narrow(batch_axis, local, 1).copy_(small)
+    return big
+
+
+@register_impl("kv_splice", "native", auto_ok=False)
+def _kv_splice_native(comm, big, *, small, slot, batch_axis=1,
+                      root_lane=0, root_node=0):
+    """One-shot baseline: a mask-to-root all-reduce of the whole leaf (the
+    SPMD emulation ``repro``'s ``bcast/native`` charges), then the local
+    splice."""
+    _, mine = _root(comm.topo, root_lane, root_node)
+    small = small.to(big.dtype, copy=True)
+    if not mine:
+        small.zero_()
+    dist.all_reduce(small, group=comm.topo.group)
+    return _splice_local(comm, big, small, slot, batch_axis)
+
+
+@register_impl("kv_splice", "lane", auto_ok=False)
+def _kv_splice_lane(comm, big, *, small, slot, batch_axis=1,
+                    root_lane=0, root_node=0):
+    """Decomposed variant: the leaf flattened, zero-padded to a multiple
+    of n, broadcast through the §3 lane bcast (the root node's stripes,
+    n lane broadcasts, an all-gather on every node), then spliced
+    locally."""
+    topo = comm.topo
+    flat = small.to(big.dtype).reshape(-1)
+    pad = (-flat.shape[0]) % max(topo.n(), 1)
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    out = C.bcast_lane(flat, topo, root_lane=root_lane, root_node=root_node,
+                       root_replicated=True)
+    small = out[:small.numel()].reshape(small.shape)
+    return _splice_local(comm, big, small, slot, batch_axis)
 
 
 def grad_sync_buckets(comm, grads, num_buckets=None) -> int:

@@ -203,7 +203,12 @@ class LaneComm:
 
     def kv_splice(self, big, *, small, slot, batch_axis: int = 1,
                   strategy: Optional[str] = None, **kw):
-        """The serving KV distribution; ROADMAP.md item 9b ports it."""
+        """Distribute a fresh batch-1 cache leaf ``small`` (computed on
+        every process, the root's copy canonical) into global slot
+        ``slot`` of the slot-sharded leaf ``big`` (this process's block of
+        slots, in global-rank order, along ``batch_axis``), in place;
+        returns ``big``.  Strategies: ``"lane"`` (default) or
+        ``"native"``."""
         return self._dispatch("kv_splice", big, strategy or "lane",
                               small=small, slot=slot,
                               batch_axis=batch_axis, **kw)

@@ -42,6 +42,9 @@ profiler is on.
 """
 from __future__ import annotations
 
+import math
+import sys
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -49,6 +52,13 @@ from torch.profiler import record_function
 
 from repro_torch import _tree
 from repro_torch._device import resolve_device
+from repro_torch.checkpoint import (REPLICATED, CheckpointCorruptError,
+                                    Zero1CheckpointLayout,
+                                    Zero3CheckpointLayout, committed_steps,
+                                    concat_flat_order, load_canonical,
+                                    peek_manifest, restore_checkpoint,
+                                    split_flat_order)
+from repro_torch.checkpoint.store import host_array, to_torch
 from repro_torch.comm import LaneComm
 from repro_torch.comm.layout import param_layout_kind
 from repro_torch.configs.base import ModelConfig, RunConfig
@@ -428,6 +438,8 @@ def _build_zero3(run, opt, comm, single):
                 if have_repl:
                     adamw_update(opt, g_repl, opt_state["rest"], repl,
                                  grad_norm=gnorm)
+                else:       # repro's update of an empty tree counts too
+                    opt_state["rest"]["count"] += 1
                 mask_b, mask_e = decay_masks(master_b.device)
                 ob, oe = opt_state["blocks"], opt_state["extras"]
                 ob["count"] += 1
@@ -472,40 +484,530 @@ def init_train_state(params, *, device="cuda"):
     return params, adamw_init(params)
 
 
+
+
+# ---------------------------------------------------------------------------
+# checkpoint layouts, and the state a step trains from in each
+# ---------------------------------------------------------------------------
+
+def zero1_checkpoint_layout(params, n: int, num_buckets: int = 0):
+    """The checkpoint layout of ``lane_zero1``'s flat moments (the same K
+    and padding as ``zero1_opt_init`` and the step)."""
+    total = sum(math.prod(p.shape) for p in _tree.leaves(params))
+    K = resolve_num_buckets(total, n, num_buckets)
+    return Zero1CheckpointLayout(total, K, n)
+
+
+def zero3_checkpoint_layout(cfg: ModelConfig, n: int, N: int,
+                            fsdp_prefetch: int = 0, ep: bool = False):
+    """The checkpoint layout of ``lane_zero3``'s (L, B, p, s) masters, the
+    layer stack and the extras pseudo-layer (the same B as
+    ``shard_stack``, ``zero3_opt_init`` and the step).  ``ep=True`` (the
+    expert-parallel flavour) raises: ROADMAP.md item 10."""
+    lays = zero3_stack_layouts(cfg)
+    lay_b, lay_e = lays["blocks"], lays["extras"]
+    Bb = resolve_prefetch_blocks(lay_b.row_elems, n, N, fsdp_prefetch)
+    Be = resolve_extras_prefetch_blocks(lay_e.row_elems, n, N,
+                                        fsdp_prefetch)
+    return Zero3CheckpointLayout(lay_b.length, lay_b.row_elems, Bb,
+                                 max(n * N, 1),
+                                 extra_elems=lay_e.row_elems,
+                                 extra_blocks=Be, ep=ep)
+
+
 def init_lane_train_state(run: RunConfig, params, comm=None, *,
                           single: bool = True, device="cuda"):
-    """``(params, opt_state)`` in the layout of the step
+    """``(params, opt_state, checkpoint layout)`` in the layout of the step
     ``build_train_step(run, ..., comm, single=single)`` builds, from the
     whole parameter tree ``params`` (the port's layout, any device):
 
-      replicated  ``init_train_state``;
+      replicated  ``init_train_state``; ``REPLICATED``;
       zero1       the parameters as there, the flat sharded moments
-                  (``zero1_opt_init``);
+                  (``zero1_opt_init``); ``zero1_checkpoint_layout``;
       zero3       ``{"blocks": (L, B·s) f32, "extras": (B_e·s_e,) f32,
                   **replicated keys}``: this process's stripes of
-                  ``shard_stack``'s masters, and ``zero3_opt_init``.
+                  ``shard_stack``'s masters, and ``zero3_opt_init``;
+                  ``zero3_checkpoint_layout``, which must describe the
+                  masters just made (it raises on drift, as ``repro``).
 
     The caller drops ``params`` afterwards: under zero3 the stripes
     replace it."""
     kind = layout_kind(run, single)
     if kind == "replicated":
-        return init_train_state(params, device=device)
+        return (*init_train_state(params, device=device), REPLICATED)
     dev = resolve_device(device)
     topo = comm.topo
     n, N = topo.sizes()
     if kind == "zero1":
         params, _ = init_train_state(params, device=device)
-        return params, zero1_opt_init(params, n, run.gradsync_buckets)
+        return (params, zero1_opt_init(params, n, run.gradsync_buckets),
+                zero1_checkpoint_layout(params, n, run.gradsync_buckets))
     cfg = run.model
+    layout = zero3_checkpoint_layout(cfg, n, N, run.fsdp_prefetch)
     stack, extras, repl = split_params(block_stack_spec(cfg), params)
     idx = topo.node_rank() * N + topo.lane_rank()
     out, _ = init_train_state(repl, device=device)
+    got = {}
     for key, tree, stacked in (("blocks", stack, True),
                                ("extras", extras, False)):
-        master, _ = shard_stack(tree, n, N, run.fsdp_prefetch,
+        master, B = shard_stack(tree, n, N, run.fsdp_prefetch,
                                 stacked=stacked)
+        got[key] = (tuple(master.shape), B)
         mine = master[:, :, idx].reshape(master.shape[0], -1).to(dev)
         del master
         out[key] = mine if stacked else mine[0]
+    if got != {"blocks": (layout.master_shape, layout.num_blocks),
+               "extras": (layout.extra_master_shape, layout.extra_blocks)}:
+        # both sides derive B and the padding from the stacks' element
+        # counts; were they to disagree, the checkpoint would record the
+        # wrong geometry
+        raise ValueError(
+            f"zero3 master layout drift: sharded stacks {got} vs "
+            f"checkpoint layout {layout.master_shape}/"
+            f"{layout.extra_master_shape} "
+            f"(B={layout.num_blocks}/{layout.extra_blocks})")
     return out, zero3_opt_init(cfg, out, n, N, run.fsdp_prefetch,
-                               device=dev)
+                               device=dev), layout
+
+
+# ---------------------------------------------------------------------------
+# the state on the host, in repro's layout (checkpoints)
+# ---------------------------------------------------------------------------
+#
+# A checkpoint holds (params, opt_state) as repro's train driver has them:
+# every layer stack one (L, ...) leaf per key path, ZeRO masters and
+# moments in their host-global shapes (zero1 (n·K·s,), zero3 (L, B, p,
+# s)), the step counts int32 scalars.  state_to_host assembles that tree
+# on world rank 0 (the stripes of every rank gathered to it over the
+# communicator); host_to_state hands each rank its part of such a tree.
+# The cross-layout path lifts a checkpoint's canonical leaves to the
+# replicated form (state_to_replicated) and lays them out again for the
+# current run (replicated_to_state): pure reshapes and transposes, and
+# the cast of an f32 ZeRO master into a bf16 replicated parameter.
+
+def _host(t):
+    """An owned CPU copy of ``t`` (a meta tensor stays as it is)."""
+    return t if t.is_meta else t.detach().to("cpu", copy=True)
+
+
+def _stack_layers(layers):
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: _stack_layers([lp[k] for lp in layers]) for k in first}
+    out = torch.empty((len(layers), *first.shape), dtype=first.dtype,
+                      device="meta" if first.is_meta else "cpu")
+    if not first.is_meta:
+        for i, t in enumerate(layers):
+            out[i].copy_(t.detach())
+    return out
+
+
+def _stacked(tree):
+    """A tree of the port's layout (parameters, or moments mirroring them)
+    in ``repro``'s: each list of layers under ``"blocks"`` becomes one
+    (L, ...) leaf per key path.  Tensors become owned CPU copies (meta
+    stays meta); other leaves (the step counts) are kept."""
+    if isinstance(tree, dict):
+        return {k: _stack_layers(v) if k == _tree.STACK_KEY
+                and isinstance(v, list) else _stacked(v)
+                for k, v in tree.items()}
+    return _host(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def _unstacked(tree_r, like, fn):
+    """``repro``-layout ``tree_r`` -> a tree of the port's layout shaped
+    like ``like``, each leaf ``fn(repro leaf (its layer's row under a
+    stack), like's leaf)``."""
+    src = dict(_tree.flatten(tree_r))
+    out = []
+    for path, leaf in _tree.flatten(like):
+        rpath, stack, layer = _tree.repro_path(path)
+        a = src[rpath]
+        out.append(fn(a if stack is None else a[layer], leaf))
+    return _tree.unflatten(like, out)
+
+
+def _as_torch(a):
+    return a if isinstance(a, torch.Tensor) else to_torch(a)
+
+
+def _cast(a, like):
+    """A host leaf as a CPU tensor of ``like``'s dtype."""
+    return _as_torch(a).to(dtype=like.dtype)
+
+
+def _meta(shape, dtype=torch.float32):
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def _f32_like(tree):
+    return _tree.tree_map(lambda t: _meta(t.shape), tree)
+
+
+def _gather_to_root(t, topo):
+    """Every process's ``t`` (the same shape everywhere) on the root of
+    the communicator, as host copies by global rank; None elsewhere."""
+    if topo.p() == 1:
+        return [_host(t)]
+    root = topo.rank_of(0)
+    t = t.detach().contiguous()
+    if dist.get_rank() != root:
+        dist.gather(t, None, dst=root, group=topo.group)
+        return None
+    parts = [torch.empty_like(t) for _ in range(topo.p())]
+    dist.gather(t, parts, dst=root, group=topo.group)
+    return [_host(x) for x in parts]
+
+
+def _master(t, topo, shape3):
+    """This process's stripe ``t`` gathered into the host-global (L, B,
+    p, s) master on the root (stripes in ``shard_stack``'s node-major
+    order, process (node i, lane j) at i·N + j); None elsewhere."""
+    parts = _gather_to_root(t, topo)
+    if parts is None:
+        return None
+    if len(parts) == 1:                     # p = 1: a view, no copy
+        return parts[0].view(shape3).unsqueeze(2)
+    n, N = topo.sizes()
+    return torch.stack([parts[j * n + i].view(shape3)
+                        for i in range(n) for j in range(N)], dim=2)
+
+
+def state_to_host(run: RunConfig, layout, params, opt_state, comm=None):
+    """The checkpoint tree of a state in ``layout``: ``(params,
+    opt_state)`` in ``repro``'s layout and host-global shapes, as owned
+    CPU tensors (ints for the step counts), on world rank 0, and None on
+    every other process (each takes part in the gathers: every rank must
+    call it)."""
+    lead = comm is None or dist.get_rank() == 0
+    if layout.kind == "replicated":
+        return (_stacked(params), _stacked(opt_state)) if lead else None
+    topo = comm.topo
+    if layout.kind == "zero1":
+        n = topo.n()
+        mv = {}
+        for key in ("m", "v"):
+            parts = _gather_to_root(opt_state[key], topo)
+            mv[key] = None if parts is None else torch.cat(parts[:n])
+        if not lead:
+            return None
+        return _stacked(params), {"count": opt_state["count"], **mv}
+    L, B, _, s = layout.master_shape
+    _, Be, _, se = layout.extra_master_shape
+    shapes = {"blocks": (L, B, s), "extras": (1, Be, se)}
+    masters = {(k, name): _master(t, topo, shapes[k])
+               for k in ("blocks", "extras")
+               for name, t in (("p", params[k]),
+                               ("m", opt_state[k]["m"]),
+                               ("v", opt_state[k]["v"]))}
+    if not lead:
+        return None
+    p_r = _stacked({k: v for k, v in params.items()
+                    if k not in ("blocks", "extras")})
+    o_r = {"rest": _stacked(opt_state["rest"])}
+    for k in ("blocks", "extras"):
+        p_r[k] = masters[k, "p"]
+        o_r[k] = {"count": opt_state[k]["count"], "m": masters[k, "m"],
+                  "v": masters[k, "v"]}
+    return p_r, o_r
+
+
+def host_to_state(run: RunConfig, layout, tree_r, comm=None, *,
+                  device="cuda"):
+    """This process's ``(params, opt_state)`` in ``layout`` on ``device``
+    from a checkpoint tree of that layout (``state_to_host``'s form;
+    numpy arrays or CPU tensors): the replicated leaves unstacked into
+    the port's layer lists, zero1's node shard of the moments, zero3's
+    stripe of every master."""
+    cfg = run.model
+    dev = resolve_device(device)
+    tree_r = _tree.tree_map(lambda a: a if isinstance(a, int)
+                            else host_array(a), tree_r)
+    p_r, o_r = tree_r
+    count = lambda a: int(np.asarray(a))
+    put = lambda a, like: _cast(a, like).to(dev)
+    params_t = init_model(cfg, device="meta")
+    if layout.kind in ("replicated", "zero1"):
+        params, _ = init_train_state(_unstacked(p_r, params_t, _cast),
+                                     device=dev)
+        if layout.kind == "replicated":
+            f32 = _f32_like(params_t)
+            return params, {"m": _unstacked(o_r["m"], f32, put),
+                            "v": _unstacked(o_r["v"], f32, put),
+                            "count": count(o_r["count"])}
+        i = comm.topo.node_rank()
+        shard = lambda a: to_torch(np.ascontiguousarray(
+            a.reshape(layout.n, -1)[i])).to(dev)
+        return params, {"m": shard(o_r["m"]), "v": shard(o_r["v"]),
+                        "count": count(o_r["count"])}
+    topo = comm.topo
+    n, N = topo.sizes()
+    idx = topo.node_rank() * N + topo.lane_rank()
+    stripe = lambda a: to_torch(np.ascontiguousarray(
+        a[:, :, idx])).reshape(a.shape[0], -1).to(dev)
+    _, _, repl_t = split_params(block_stack_spec(cfg), params_t)
+    repl = _unstacked({k: p_r[k] for k in repl_t}, repl_t, _cast)
+    params, _ = init_train_state(repl, device=dev)
+    params["blocks"] = stripe(p_r["blocks"])
+    params["extras"] = stripe(p_r["extras"])[0]
+    f32 = _f32_like(repl_t)
+    ro = o_r["rest"]
+    opt = {"rest": {"m": _unstacked(ro["m"], f32, put),
+                    "v": _unstacked(ro["v"], f32, put),
+                    "count": count(ro["count"])}}
+    for k in ("blocks", "extras"):
+        m, v = stripe(o_r[k]["m"]), stripe(o_r[k]["v"])
+        if k == "extras":
+            m, v = m[0], v[0]
+        opt[k] = {"m": m, "v": v, "count": count(o_r[k]["count"])}
+    return params, opt
+
+
+def _state_template(cfg: ModelConfig, kind: str, *, flat=None, blocks=None,
+                    extras=None):
+    """``(params, opt_state)`` of shapes in ``repro``'s layout (meta
+    tensors; 0 for the step counts): ``replicated``; ``zero1`` with
+    moments of ``flat`` elements; ``zero3`` with the stack and extras
+    masters of shapes ``blocks`` and ``extras``."""
+    params_t = init_model(cfg, device="meta")
+    adamw_t = lambda t: {"count": 0, "m": _stacked(_f32_like(t)),
+                         "v": _stacked(_f32_like(t))}
+    if kind == "replicated":
+        return _stacked(params_t), adamw_t(params_t)
+    if kind == "zero1":
+        return _stacked(params_t), {"count": 0, "m": _meta((flat,)),
+                                    "v": _meta((flat,))}
+    if kind != "zero3":
+        raise ValueError(f"unknown checkpoint layout kind {kind!r}")
+    _, _, repl_t = split_params(block_stack_spec(cfg), params_t)
+    p_t = _stacked(repl_t)
+    o_t = {"rest": adamw_t(repl_t)}
+    for k, shape in (("blocks", blocks), ("extras", extras)):
+        p_t[k] = _meta(shape)
+        o_t[k] = {"count": 0, "m": _meta(shape), "v": _meta(shape)}
+    return p_t, o_t
+
+
+def _canonical_state_template(cfg: ModelConfig, entry: dict):
+    """The template of the canonical leaves a checkpoint of layout
+    ``entry`` (its manifest's) stores."""
+    kind = (entry or {}).get("kind", "replicated")
+    if kind == "zero3":
+        if entry.get("ep"):
+            raise NotImplementedError(
+                "an expert-parallel zero3 checkpoint: expert parallelism "
+                "is not ported yet (ROADMAP.md, Queue 1, item 10 (TP/EP))")
+        if not entry.get("extra_elems"):
+            raise ValueError(
+                "zero3 checkpoint predates the extras pseudo-layer (no "
+                "extra_elems in its layout entry); cross-layout restore "
+                "needs the current master format")
+        lays = zero3_stack_layouts(cfg)
+        return _state_template(
+            cfg, kind,
+            blocks=(lays["blocks"].length, lays["blocks"].row_elems),
+            extras=(1, lays["extras"].row_elems))
+    return _state_template(cfg, kind,
+                           flat=int((entry or {}).get("total_elems", 0)))
+
+
+def _layout_template(cfg: ModelConfig, layout):
+    """The template of a checkpoint tree in ``layout`` (host-global)."""
+    if layout.kind == "zero3":
+        return _state_template(cfg, "zero3", blocks=layout.master_shape,
+                               extras=layout.extra_master_shape)
+    return _state_template(cfg, layout.kind,
+                           flat=getattr(layout, "padded", None))
+
+
+def state_to_replicated(cfg: ModelConfig, entry: dict, state):
+    """A checkpoint's canonical ``(params, opt_state)`` of layout
+    ``entry`` (numpy arrays or CPU tensors, ``repro``'s layout) -> the
+    replicated form in the port's layout: (params, {"m", "v", "count"})
+    as CPU tensors, the parameters in the dtypes stored (zero3: cast
+    from the f32 masters to the model's), the moments f32."""
+    kind = (entry or {}).get("kind", "replicated")
+    p_r, o_r = state
+    params_t = init_model(cfg, device="meta")
+    f32 = _f32_like(params_t)
+    count = lambda a: int(np.asarray(a))
+    if kind == "replicated":
+        return _unstacked(p_r, params_t, lambda a, _: _as_torch(a)), {
+            "m": _unstacked(o_r["m"], f32, _cast),
+            "v": _unstacked(o_r["v"], f32, _cast),
+            "count": count(o_r["count"])}
+    if kind == "zero1":
+        shapes = [t.shape for t in _tree.leaves(params_t)]
+        mk = lambda flat: _tree.unflatten(f32, [
+            torch.from_numpy(np.ascontiguousarray(x)) for x in
+            split_flat_order(host_array(flat), shapes)])
+        return _unstacked(p_r, params_t, lambda a, _: _as_torch(a)), {
+            "m": mk(o_r["m"]), "v": mk(o_r["v"]),
+            "count": count(o_r["count"])}
+    if kind != "zero3":
+        raise ValueError(f"unknown lane state layout kind {kind!r}")
+    lays = zero3_stack_layouts(cfg)
+    lay_b, lay_e = lays["blocks"], lays["extras"]
+    _, _, repl_t = split_params(block_stack_spec(cfg), params_t)
+    row = lambda a: _as_torch(a).float().contiguous()
+
+    def tree(repl_src, blocks, extras, dtype=None):
+        out = _unstacked(repl_src, _f32_like(repl_t) if dtype else repl_t,
+                         _cast)
+        out.update(lay_e.unflatten_row(row(extras[0]), dtype))
+        out["blocks"] = [lay_b.unflatten_row(row(r), dtype) for r in blocks]
+        return out
+    params = tree({k: p_r[k] for k in repl_t}, p_r["blocks"],
+                  p_r["extras"])
+    moments = {name: tree(o_r["rest"][name], o_r["blocks"][name],
+                          o_r["extras"][name], torch.float32)
+               for name in ("m", "v")}
+    return params, {**moments, "count": count(o_r["blocks"]["count"])}
+
+
+def replicated_to_state(cfg: ModelConfig, run: RunConfig, n: int, N: int,
+                        params, opt_state, *, kind: str):
+    """The replicated form (``state_to_replicated``'s) -> the checkpoint
+    tree of layout ``kind`` for an (n, N) topology: ``state_to_host``'s
+    form, with the values ``init_lane_train_state`` would lay out."""
+    count = opt_state["count"]
+    if kind == "replicated":
+        # into the model's dtypes (an f32 ZeRO master into a bf16 run)
+        params = _tree.tree_map(lambda v, t: v.to(t.dtype), params,
+                                init_model(cfg, device="meta"))
+        return _stacked(params), {"count": count,
+                                  "m": _stacked(opt_state["m"]),
+                                  "v": _stacked(opt_state["v"])}
+    if kind == "zero1":
+        layout = zero1_checkpoint_layout(params, n, run.gradsync_buckets)
+        lay1 = lambda tree: layout.from_canonical(("m",), concat_flat_order(
+            [host_array(t) for t in _tree.leaves(tree)]))
+        return _stacked(params), {"count": count, "m": lay1(opt_state["m"]),
+                                  "v": lay1(opt_state["v"])}
+    if kind != "zero3":
+        raise ValueError(f"unknown lane state layout kind {kind!r}")
+    spec = block_stack_spec(cfg)
+
+    def masters(tree):
+        stack, extras, repl = split_params(spec, tree)
+        return (shard_stack(stack, n, N, run.fsdp_prefetch)[0],
+                shard_stack(extras, n, N, run.fsdp_prefetch,
+                            stacked=False)[0], _stacked(repl))
+    pb, pe, p3 = masters(params)
+    p3.update(blocks=pb, extras=pe)
+    (mb, me, mr), (vb, ve, vr) = masters(opt_state["m"]), \
+        masters(opt_state["v"])
+    return p3, {"rest": {"count": count, "m": mr, "v": vr},
+                "blocks": {"count": count, "m": mb, "v": vb},
+                "extras": {"count": count, "m": me, "v": ve}}
+
+
+def restore_lane_train_state(ckpt_dir: str, run: RunConfig, layout,
+                             comm=None, *, step=None, device="cuda"):
+    """Restore a checkpoint into this process's state of ``layout`` (the
+    run's, from ``init_lane_train_state``), through the canonical
+    replicated form when the checkpoint was written under another layout
+    kind or topology (a ``lane_zero3`` checkpoint into a ``lane_zero1``
+    or replicated run, and back; any number of ranks).  Returns
+    ``((params, opt_state), step)``; every process reads the files.
+
+    Leaves are crc-checked as they load.  With ``step=None`` a corrupt
+    newest checkpoint falls back to the newest committed step that
+    verifies; an explicit step raises ``CheckpointCorruptError``.
+    Geometry ValueErrors always propagate."""
+    candidates = [step] if step is not None \
+        else list(reversed(committed_steps(ckpt_dir)))
+    if not candidates:
+        raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
+    last_err = None
+    for cand in candidates:
+        try:
+            return _restore_lane_state_at(ckpt_dir, run, layout, comm, cand,
+                                          device)
+        except CheckpointCorruptError as e:
+            last_err = e
+            if step is not None:
+                raise
+            print(f"checkpoint step {cand} is corrupt ({e}); falling "
+                  f"back to the previous committed step",
+                  file=sys.stderr, flush=True)
+    raise CheckpointCorruptError(
+        f"no verifiable checkpoint in {ckpt_dir} "
+        f"(tried steps {candidates})") from last_err
+
+
+def _pair_canonical(template, man: dict, arrays: list, kind: str):
+    """``template`` (a tree of meta tensors and ints) with a checkpoint's
+    canonical leaves in its flat order, each read by the manifest's dtype
+    as a CPU tensor after its shape is checked."""
+    refs = _tree.leaves(template)
+    if len(refs) != len(arrays):
+        raise ValueError(
+            f"checkpoint holds {len(arrays)} leaves but a {kind!r} state "
+            f"of this model has {len(refs)} (different model?)")
+    leaves = []
+    for i, (ref, arr, entry) in enumerate(zip(refs, arrays, man["leaves"])):
+        if tuple(getattr(ref, "shape", ())) != tuple(arr.shape):
+            raise ValueError(
+                f"cross-layout restore: canonical leaf {i} has shape "
+                f"{tuple(arr.shape)} but a {kind!r} state of this model "
+                f"stores {tuple(getattr(ref, 'shape', ()))} (different "
+                f"model?)")
+        leaves.append(to_torch(arr, entry["dtype"]))
+    return _tree.unflatten(template, leaves)
+
+
+def load_canonical_state(ckpt_dir: str, cfg: ModelConfig, step=None):
+    """``(manifest, the canonical (params, opt_state) tree, step)`` of
+    one checkpoint, its leaves paired with the template of its layout
+    (shapes checked) and read by the manifest's dtypes."""
+    man, arrays, got = load_canonical(ckpt_dir, step)
+    entry = man.get("layout") or {}
+    return man, _pair_canonical(_canonical_state_template(cfg, entry), man,
+                                arrays, entry.get("kind", "replicated")), got
+
+
+def load_canonical_params(ckpt_dir: str, cfg: ModelConfig, step=None):
+    """``(params, step)``: the replicated parameters of one checkpoint in
+    the port's layout, as CPU tensors in the dtypes stored, from a whole
+    training state of any layout (lifted by ``state_to_replicated``, the
+    optimizer state dropped) or from a replicated tree of parameters
+    alone, as ``repro``'s ``load_serve_params`` accepts both.  The
+    leaves are read once."""
+    man, arrays, got = load_canonical(ckpt_dir, step)
+    entry = man.get("layout") or {}
+    kind = entry.get("kind", "replicated")
+    params_t = init_model(cfg, device="meta")
+    state_t = _canonical_state_template(cfg, entry)
+    stacked_t = _stacked(params_t)
+    n_state = len(_tree.leaves(state_t))
+    n_params = len(_tree.leaves(stacked_t))
+    if len(arrays) == n_state:
+        state = _pair_canonical(state_t, man, arrays, kind)
+        return state_to_replicated(cfg, entry, state)[0], got
+    if len(arrays) == n_params and kind == "replicated":
+        tree_r = _pair_canonical(stacked_t, man, arrays, kind)
+        return _unstacked(tree_r, params_t, lambda a, _: a), got
+    raise ValueError(
+        f"checkpoint at {ckpt_dir} holds {len(arrays)} leaves; a {kind!r} "
+        f"state of this model has {n_state} (or {n_params} params-only) "
+        f"(different model?)")
+
+
+def _restore_lane_state_at(ckpt_dir, run, layout, comm, step, device):
+    cfg = run.model
+    # decide from the manifest alone: the usual same-kind resume reads
+    # the masters once
+    man, got = peek_manifest(ckpt_dir, step)
+    entry = man.get("layout") or {}
+    if entry.get("kind", "replicated") == layout.kind \
+            and not entry.get("ep"):
+        tree, got = restore_checkpoint(ckpt_dir, _layout_template(cfg, layout),
+                                       step=got, layout=layout)
+    else:
+        man, src, got = load_canonical_state(ckpt_dir, cfg, got)
+        n, N = comm.topo.sizes() if comm is not None else (1, 1)
+        tree = replicated_to_state(cfg, run, n, N,
+                                   *state_to_replicated(cfg, entry, src),
+                                   kind=layout.kind)
+    return host_to_state(run, layout, tree, comm, device=device), got

@@ -27,6 +27,9 @@ Counterpart of ``repro.models.blockstack``:
                    i+1 starts), the blocking control, and the backward
                    re-gather (gather and body in one
                    ``torch.utils.checkpoint`` cell).
+  ``scan_stack_cached``
+                   the serving layer loop: per-layer inputs (the cache
+                   rows) and stacked outputs, the same prefetch.
   ``BlockSpec``    what a model family declares to ride the stack, through
                    the ``comm`` registry (``register_block_stack``); the
                    specs live in ``models.transformer``.
@@ -51,7 +54,7 @@ from repro_torch.core.costmodel import optimal_prefetch_blocks
 from repro_torch.core.pipeline import pipelined_reduce_scatter_lane_
 
 __all__ = [
-    "ShardedStack", "scan_stack", "RowGather", "StackLayout",
+    "ShardedStack", "scan_stack", "scan_stack_cached", "RowGather", "StackLayout",
     "stack_layout", "shard_stack", "resolve_prefetch_blocks",
     "resolve_extras_prefetch_blocks", "BlockSpec",
     "register_block_stack", "block_stack_spec", "block_stack_families",
@@ -86,13 +89,15 @@ class StackLayout:
         self.length = length            # L: rows in the stack
         self.stacked = stacked
 
-    def row_leaves(self, vec) -> list:
+    def row_leaves(self, vec, dtype=None) -> list:
         """One row's leaves from its (padded) flat f32 vector, each a new
-        tensor in its stored dtype."""
+        tensor in its stored dtype (in ``dtype`` where given: the f32
+        moments of a row)."""
         out, ofs = [], 0
-        for shape, dtype in self.metas:
+        for shape, dt in self.metas:
             sz = math.prod(shape)
-            out.append(vec[ofs:ofs + sz].view(shape).to(dtype, copy=True))
+            out.append(vec[ofs:ofs + sz].view(shape).to(dtype or dt,
+                                                        copy=True))
             ofs += sz
         return out
 
@@ -103,10 +108,10 @@ class StackLayout:
             _tree.set_path(tree, path, leaf)
         return tree
 
-    def unflatten_row(self, vec):
+    def unflatten_row(self, vec, dtype=None):
         """Padded flat f32 row -> the row's parameter tree, every leaf cast
-        back to its dtype."""
-        return self.tree_of(self.row_leaves(vec))
+        back to its dtype (or to ``dtype``)."""
+        return self.tree_of(self.row_leaves(vec, dtype))
 
     def flatten_row(self, tree, pad_to: int = 1, *, out=None):
         """One row's tree -> its f32 flat vector, zero-padded to a
@@ -411,6 +416,65 @@ def scan_stack(stack: ShardedStack, h, body):
     return h, torch.stack([
         a.float().reshape(()) if isinstance(a, torch.Tensor)
         else h.new_tensor(float(a), dtype=torch.float32) for a in aux])
+
+
+def _row(xs, i):
+    """Row ``i`` of every leaf of ``xs`` (dicts, tuples, tensors; None)."""
+    if xs is None:
+        return None
+    if isinstance(xs, dict):
+        return {k: _row(v, i) for k, v in xs.items()}
+    if isinstance(xs, (tuple, list)):
+        return type(xs)(_row(v, i) for v in xs)
+    return xs[i]
+
+
+def _stack_rows(ys):
+    """The rows a body returned, stacked leaf by leaf along a new axis 0
+    (None when the body returns None)."""
+    first = ys[0]
+    if first is None:
+        return None
+    if isinstance(first, dict):
+        return {k: _stack_rows([y[k] for y in ys]) for k in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(_stack_rows([y[j] for y in ys])
+                           for j in range(len(first)))
+    return torch.stack(ys)
+
+
+def scan_stack_cached(stack, h, xs, body):
+    """The serving layer loop, ``repro``'s ``scan_stack_cached``: per-layer
+    inputs and stacked outputs, over a ``ShardedStack`` (``lane_zero3``
+    hosting) or the replicated list of layers (no gather).
+
+    ``body(h, layer_params, xs_row) -> (h', ys_row)``: ``xs`` is a tree
+    (dicts, tuples) whose every leaf has a leading L axis, and ``xs_row``
+    its row i (views: the cached bodies write the cache rows in place);
+    the ``ys_row`` (a tree of tensors, or None) come back stacked along a
+    new axis 0 (the audio prefill's cross-attention K/V).  No autograd, no
+    aux, no regather: over a ``ShardedStack``, layer i+1's gather starts
+    (on a GPU, on the gather stream) before layer i's body, so exactly L
+    gathers run per call; ``stack.prefetch=False`` gathers each layer as
+    its body needs it.  Returns ``(h, ys)``."""
+    sharded = isinstance(stack, ShardedStack)
+    L = len(stack.shards) if sharded else len(stack)
+    ys = []
+    pending = _start(stack.gather, stack.shards[0]) \
+        if sharded and stack.prefetch else None
+    for i in range(L):
+        if not sharded:
+            w = stack[i]
+        else:
+            shards, gather = stack.shards, stack.gather
+            if pending is None:
+                pending = _start(gather, shards[i])
+            w = _finish(gather, pending, shards[i])
+            pending = _start(gather, shards[i + 1]) \
+                if stack.prefetch and i + 1 < L else None
+        h, y = body(h, w, _row(xs, i))
+        ys.append(y)
+    return h, _stack_rows(ys)
 
 
 # ---------------------------------------------------------------------------

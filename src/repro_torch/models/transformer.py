@@ -50,7 +50,7 @@ from . import layers as L
 from . import moe as M
 from . import ssm as S
 from .blockstack import (BlockSpec, ShardedStack, block_stack_spec,
-                         register_block_stack, scan_stack)
+                         register_block_stack, scan_stack, scan_stack_cached)
 
 _FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 # families whose every layer is an attention block (one KV cache per layer)
@@ -502,10 +502,9 @@ def _attn_cached(lp, h, cfg: ModelConfig, kc, vc, length, *,
     return h
 
 
-def _mamba_cached(lp, h, cfg: ModelConfig, mcache, i: int):
-    """Mamba2 block from layer ``i`` of the stacked state ``mcache``, whose
-    leaves it then overwrites in place with the new state."""
-    layer = {name: a[i] for name, a in mcache.items()}
+def _mamba_cached(lp, h, cfg: ModelConfig, layer: dict):
+    """Mamba2 block from one layer's state ``layer`` (views into the
+    stacked cache), whose leaves it then overwrites in place."""
     h, new = _mamba_block(lp, h, cfg, state=layer)
     for name, a in layer.items():
         a.copy_(new[name])
@@ -513,32 +512,53 @@ def _mamba_cached(lp, h, cfg: ModelConfig, mcache, i: int):
 
 
 def _layers_cached(params, cfg: ModelConfig, h, cache, length, *,
-                   prefill: bool, enc_kv=None):
-    """Every layer of the family against its cache, in place."""
+                   prefill: bool, enc_out=None, enc_kv=None):
+    """Every layer of the family against its cache, in place.
+
+    ``params["blocks"]`` is the list of layers, or a ``ShardedStack``
+    (``lane_zero3`` serving: each layer's weights gathered one ahead);
+    the dense, moe, ssm, vlm and audio families run through
+    ``scan_stack_cached`` either way, so one body serves both hostings.
+    Returns ``(h, enc_kv)``: given ``enc_out`` (the audio prefill), every
+    layer's cross K/V computed in its body, stacked ``{"k", "v"}`` (L, B,
+    Te, K, hd); else None."""
+    stack = params["blocks"]
     if cfg.family in _SCANNED_FAMILIES:
-        for i, lp in enumerate(params["blocks"]):
-            ekv = None if enc_kv is None else (enc_kv["k"][i],
-                                               enc_kv["v"][i])
-            h = _attn_cached(lp, h, cfg, cache["k"][i], cache["v"][i],
-                             length, prefill=prefill, enc_kv=ekv)
-        return h
-    mcache = cache["mamba"] if cfg.family == "hybrid" else cache
-    for i, lp in enumerate(params["blocks"]):
+        if enc_out is not None:
+            def body(h, lp, x):
+                k, v = _cross_kv(lp["xattn"], enc_out, cfg)
+                return _attn_cached(lp, h, cfg, x[0], x[1], length,
+                                    prefill=prefill, enc_kv=(k, v)), \
+                    {"k": k, "v": v}
+            return scan_stack_cached(stack, h, (cache["k"], cache["v"]),
+                                     body)
+        xs = (cache["k"], cache["v"]) if enc_kv is None else \
+            (cache["k"], cache["v"], enc_kv["k"], enc_kv["v"])
+
+        def body(h, lp, x):
+            return _attn_cached(lp, h, cfg, x[0], x[1], length,
+                                prefill=prefill,
+                                enc_kv=None if len(x) == 2 else x[2:]), None
+        return scan_stack_cached(stack, h, xs, body)[0], None
+    if cfg.family == "ssm":
+        def body(h, lp, layer):
+            return _mamba_cached(lp, h, cfg, layer), None
+        return scan_stack_cached(stack, h, cache, body)[0], None
+    if isinstance(stack, ShardedStack):
+        raise ValueError(
+            f"family {cfg.family!r} cannot serve from a ShardedStack (the "
+            f"hybrid grouped attention cache does not fit the flat layer "
+            f"scan); host it replicated")
+    mcache = cache["mamba"]
+    for i, lp in enumerate(stack):
         g = _shared_attn_group(cfg, i)
         if g is not None:
             h = _attn_cached(params["shared_attn"], h, cfg,
                              cache["attn"]["k"][g], cache["attn"]["v"][g],
                              length, prefill=prefill)
-        h = _mamba_cached(lp, h, cfg, mcache, i)
-    return h
-
-
-def _scan_enc_kv(params, cfg: ModelConfig, enc_out) -> dict:
-    """Every decoder layer's cross K/V of ``enc_out``, stacked: ``{"k",
-    "v"}`` of shape (L, B, Te, K, hd)."""
-    kv = [_cross_kv(lp["xattn"], enc_out, cfg) for lp in params["blocks"]]
-    return {"k": torch.stack([k for k, _ in kv]),
-            "v": torch.stack([v for _, v in kv])}
+        h = _mamba_cached(lp, h, cfg,
+                          {name: a[i] for name, a in mcache.items()})
+    return h, None
 
 
 def _select_row(h, pos):
@@ -562,13 +582,17 @@ def prefill(params, cfg: ModelConfig, tokens, cache, *, extra_embeds=None,
     attention never reads past it.  The recurrent families (ssm, hybrid)
     fold every token they are given into their state, so their callers
     prefill at the exact prompt length (the engine does).
+
+    ``params["blocks"]`` may be a ``ShardedStack`` (``lane_zero3``
+    serving; the dense, moe, ssm, vlm and audio families): the layers run
+    through ``scan_stack_cached`` with the training's one-layer prefetch,
+    and the audio cross K/V come from each layer's gathered weights.
     """
     h, enc_out = _encode(params, cfg, tokens, extra_embeds)
-    enc_kv = None if enc_out is None else _scan_enc_kv(params, cfg, enc_out)
     Bz, T, _ = h.shape
     length0 = torch.zeros((Bz,), dtype=torch.int32, device=h.device)
-    h = _layers_cached(params, cfg, h, cache, length0, prefill=True,
-                       enc_kv=enc_kv)
+    h, enc_kv = _layers_cached(params, cfg, h, cache, length0, prefill=True,
+                               enc_out=enc_out)
     prefix = T - tokens.shape[1]            # vlm vision tokens, else 0
     if true_len is None:
         h_last = h[:, -1:]
@@ -585,10 +609,12 @@ def prefill(params, cfg: ModelConfig, tokens, cache, *, extra_embeds=None,
 def decode_step(params, cfg: ModelConfig, token, state: ServeState):
     """One token for every row.  token: (B, 1) int.  Writes the cache in
     place; the returned state shares it (and ``enc_kv``) and has
-    ``length + 1``."""
+    ``length + 1``.  ``params["blocks"]`` may be a ``ShardedStack``, as
+    in ``prefill``: layer i+1's gather then runs beside layer i's
+    cached step."""
     h = L.embed(params["embed"], token)
-    h = _layers_cached(params, cfg, h, state.cache, state.length,
-                       prefill=False, enc_kv=state.enc_kv)
+    h, _ = _layers_cached(params, cfg, h, state.cache, state.length,
+                          prefill=False, enc_kv=state.enc_kv)
     h = _norm(cfg, params["final_norm"], h)
     logits = L.unembed(params["embed"], h)
     return logits, ServeState(cache=state.cache, length=state.length + 1,

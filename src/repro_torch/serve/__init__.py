@@ -1,13 +1,15 @@
-"""Serving tier of the port: replicated serve step + continuous batching."""
+"""Serving tier of the port: the replicated and lane_zero3 serve steps,
+continuous batching, and serving weights from a checkpoint."""
 from .engine import (ContinuousBatcher, Request, termination_reason,
                      DEFAULT_BUCKETS)
 from .sampling import GREEDY, SamplerConfig, sample_token
-from .steps import ServeContext, ServeStep, build_serve_step
+from .steps import (ServeContext, ServeStep, build_serve_step,
+                    load_serve_params)
 from .scenarios import make_scenario, SCENARIO_KINDS
 
 __all__ = [
     "ContinuousBatcher", "Request", "termination_reason", "DEFAULT_BUCKETS",
     "GREEDY", "SamplerConfig", "sample_token",
-    "ServeContext", "ServeStep", "build_serve_step",
+    "ServeContext", "ServeStep", "build_serve_step", "load_serve_params",
     "make_scenario", "SCENARIO_KINDS",
 ]

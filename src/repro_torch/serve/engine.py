@@ -90,13 +90,20 @@ class ContinuousBatcher:
               top-p sampling keyed by (seed, rid, position).
     device    where the model runs; defaults to ``"cuda"`` and raises
               when there is no GPU.
+    hosting   ``"replicated"`` or ``"lane_zero3"``: 1/p weight stripes
+              and slots over ``topo`` (every rank of it runs the same
+              engine on the same requests, in lockstep; each gets every
+              slot's logits), with the gather's ``prefetch_blocks`` and
+              the ``kv_strategy`` of the splice (``serve.steps``).
     step      inject a prebuilt ServeStep (its device wins).
     """
 
     def __init__(self, params, cfg, *, slots: int, max_seq: int,
                  eos_id: int = -1, sampler: Optional[SamplerConfig] = None,
                  hosting: str = "replicated",
-                 step: Optional[ServeStep] = None, device="cuda"):
+                 step: Optional[ServeStep] = None, device="cuda",
+                 topo=None, prefetch_blocks: int = 0,
+                 kv_strategy: str = "lane"):
         self.cfg = cfg
         self.slots = int(slots)
         self.max_seq = int(max_seq)
@@ -113,12 +120,16 @@ class ContinuousBatcher:
         else:
             self.step = build_serve_step(
                 cfg, max_seq=self.max_seq, slots=self.slots,
-                hosting=hosting, device=device)
+                hosting=hosting, device=device, topo=topo,
+                prefetch_blocks=prefetch_blocks, kv_strategy=kv_strategy)
         self.hosted = self.step.prepare(params)
         self.state = self.step.init_state()
         self._active: dict[int, Request] = {}
         self._free = list(range(self.slots))
         self._last_tok = np.zeros((self.slots,), np.int64)
+        # positions each slot's cache holds, kept on the host (a sharded
+        # state holds only its own slots' lengths)
+        self._length = np.zeros((self.slots,), np.int64)
         self._prefix = cfg.vision_tokens if cfg.family == "vlm" else 0
 
     # -- sampling / termination -------------------------------------------
@@ -212,6 +223,7 @@ class ContinuousBatcher:
         self.state = self.step.splice(self.state, st1, slot)
         self._active[slot] = req
         self._last_tok[slot] = t
+        self._length[slot] = self._prefix + L
 
     # -- decode -----------------------------------------------------------
 
@@ -223,14 +235,14 @@ class ContinuousBatcher:
         logits, self.state = self.step.decode(self.hosted, tok, self.state)
         toks = self._next_tokens(logits[:, -1], [
             self._active.get(slot) for slot in range(self.slots)])
-        lengths = self.state.length.cpu().numpy()
+        self._length += 1
         produced = 0
         for slot, req in list(self._active.items()):
             t = toks[slot]
             req.out.append(t)
             self._last_tok[slot] = t
             produced += 1
-            if self._finish_if_done(req, t, int(lengths[slot])):
+            if self._finish_if_done(req, t, int(self._length[slot])):
                 del self._active[slot]
                 self._free.append(slot)
         return produced

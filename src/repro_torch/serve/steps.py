@@ -1,11 +1,27 @@
-"""Serving steps: the ``replicated`` hosting.
+"""Serving steps: the ``replicated`` and ``lane_zero3`` hostings, and
+serving weights from a checkpoint.
 
 Counterpart of ``repro.serve.steps``.  ``repro`` resolves each hosting
 flavour from its ``("serve_step", ...)`` registry and jits four entry
-points; here the one ported hosting, ``replicated`` (every device holds
-full weights), is a plain table entry and the entry points run eagerly.
-``lane_zero3`` (1/p weight hosting over the lane collectives) comes with
-the ZeRO slice of ROADMAP.md and raises until then.
+points; here each hosting is a plain table entry and the entry points
+run eagerly:
+
+  replicated   every process holds the whole weights (the one-card
+               baseline, and the only hosting of the hybrid family).
+  lane_zero3   1/p weight hosting across the ranks of a topology: the
+               family's ``BlockSpec`` splits the params as training does,
+               each process keeps its stripes of ``shard_stack``'s f32
+               masters, and every prefill and decode gathers the extras
+               once and each layer one ahead (``scan_stack_cached``), so
+               a group of cards serves weights none of them could hold.
+               The decode slots are sharded over the global rank (each
+               process owns a block of ``slots / p``), the batch-1
+               prefill runs on every process from the gathered weights,
+               and its fresh state goes into its slot through the
+               ``kv_splice`` collective.  Each decode's logits are
+               all-gathered in global-rank order, so every process sees
+               every slot's row and the engines sample and admit in
+               lockstep.
 
 A :class:`ServeStep` is hosting-agnostic to its caller (the engine):
 
@@ -25,33 +41,57 @@ that requires grad while grad mode is on (they have no backward yet).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
+import torch.distributed as dist
+
+from repro_torch import _tree
 from repro_torch._device import resolve_device
+from repro_torch.comm import CommConfig, LaneComm
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.lane import LaneTopology
 from repro_torch.models import (ServeState, decode_step, init_cache,
-                                prefill)
+                                init_model, prefill)
+from repro_torch.models.blockstack import (
+    RowGather, ShardedStack, block_stack_spec,
+    resolve_extras_prefetch_blocks, resolve_prefetch_blocks, shard_stack,
+    split_params)
 from repro_torch.models.layers import torch_dtype
 from repro_torch.models.transformer import check_family
 
-__all__ = ["ServeContext", "ServeStep", "build_serve_step", "HOSTINGS"]
+__all__ = ["ServeContext", "ServeStep", "build_serve_step", "HOSTINGS",
+           "load_serve_params"]
 
 
 @dataclasses.dataclass(frozen=True)
 class ServeContext:
-    """Everything a serve-step builder needs.  slots: decode batch width;
-    device: where the state lives (the params must be there too)."""
+    """Everything a serve-step builder needs.  slots: decode batch width
+    (``lane_zero3``: a multiple of the topology's p, each process owning
+    a block of ``slots / p``); device: where the state lives (the params
+    must be there too).  ``lane_zero3`` only: topo, the processes the
+    weights and slots are sharded over (``launch.mesh.new_lane_topology``;
+    ``repro`` takes a mesh); prefetch_blocks, the gather's B (0
+    cost-model auto, -1 the blocking control), as ``run.fsdp_prefetch``;
+    kv_strategy, the ``kv_splice`` cell (``"lane"`` or ``"native"``);
+    model_parallel, TP serving, which is not ported (> 1 raises)."""
     cfg: ModelConfig
     max_seq: int
     slots: int
     device: torch.device
+    topo: Optional[LaneTopology] = None
+    prefetch_blocks: int = 0
+    kv_strategy: str = "lane"
+    model_parallel: int = 1
 
 
 @dataclasses.dataclass
 class ServeStep:
-    """One hosting flavour's serving surface (see module docstring)."""
+    """One hosting flavour's serving surface (see module docstring).
+    ``collectives``: the registry cells the step resolves (empty for
+    replicated); ``gathers``: the layer gathers it issued (lane_zero3),
+    a callable returning the count."""
     hosting: str
     cfg: ModelConfig
     ctx: ServeContext
@@ -60,6 +100,8 @@ class ServeStep:
     prefill: Callable
     decode: Callable
     splice: Callable
+    collectives: dict = dataclasses.field(default_factory=dict)
+    gathers: Callable = lambda: 0
 
 
 def _init_serve_state(cfg: ModelConfig, batch: int, max_seq: int,
@@ -136,22 +178,163 @@ def _serve_replicated(ctx: ServeContext) -> ServeStep:
 
 
 def _serve_zero3(ctx: ServeContext) -> ServeStep:
-    raise NotImplementedError(
-        "hosting 'lane_zero3' is not ported yet; it comes with the ZeRO "
-        "slice of ROADMAP.md (Queue 1, item 9b)")
+    from repro_torch.launch.steps import zero3_stack_layouts
+    cfg, dev, topo = ctx.cfg, ctx.device, ctx.topo
+    if topo is None:
+        raise ValueError("lane_zero3 serving needs a topology (slots and "
+                         "weights are sharded over its processes: "
+                         "launch.mesh.new_lane_topology)")
+    if cfg.family == "hybrid":
+        raise ValueError(
+            "the hybrid family cannot serve from 1/p-sharded weights "
+            "(its grouped attention cache does not fit the flat cached "
+            "layer scan); use hosting='replicated'")
+    if ctx.model_parallel > 1:
+        raise NotImplementedError(
+            "model_parallel > 1 (tensor-parallel serving) is not ported "
+            "yet (ROADMAP.md, Queue 1, item 10 (TP/EP))")
+    n, N = topo.sizes()
+    p = max(n * N, 1)
+    if ctx.slots % p:
+        raise ValueError(
+            f"slots={ctx.slots} must be divisible by the chip count "
+            f"p={p} (each chip owns a contiguous global-rank block)")
+    lays = zero3_stack_layouts(cfg)
+    lay_b, lay_e = lays["blocks"], lays["extras"]
+    Bb = resolve_prefetch_blocks(lay_b.row_elems, n, N, ctx.prefetch_blocks)
+    Be = resolve_extras_prefetch_blocks(lay_e.row_elems, n, N,
+                                        ctx.prefetch_blocks)
+    blocking = ctx.prefetch_blocks == -1
+    comm = LaneComm(topo, CommConfig(prefetch_blocks=ctx.prefetch_blocks))
+    gather_b = RowGather(comm, lay_b, Bb)
+    spec = block_stack_spec(cfg)
+    # slot ownership follows the global rank (lane-major, the kv_splice
+    # block order); the weight stripes keep shard_stack's node-major order
+    g, local = topo.global_rank(), ctx.slots // p
+    idx = topo.node_rank() * N + topo.lane_rank()
+
+    def prepare(params):
+        """The replicated params -> this process's stripes of the masters
+        and the family's replicated keys, on the device."""
+        stack, extras, repl = split_params(spec, params)
+        hosted = {k: _tree.tree_map(lambda t: t.detach().to(dev), v)
+                  for k, v in repl.items()}
+        for key, tree, stacked, want in (("blocks", stack, True, Bb),
+                                         ("extras", extras, False, Be)):
+            master, B = shard_stack(tree, n, N, ctx.prefetch_blocks,
+                                    stacked=stacked)
+            if B != want:
+                raise RuntimeError(f"prepare resolved {key} blocks {B} but "
+                                   f"the step was built for {want}")
+            mine = master[:, :, idx].reshape(master.shape[0], -1).to(dev)
+            del master
+            hosted[key] = mine if stacked else mine[0]
+        return hosted
+
+    def _assemble(hosted):
+        """The params tree the cached forwards take: the extras gathered
+        once, the stack as a ShardedStack gathered layer by layer."""
+        params = {k: v for k, v in hosted.items()
+                  if k not in ("blocks", "extras")}
+        params.update(lay_e.unflatten_row(
+            comm.prefetch_allgather(hosted["extras"], num_blocks=Be)))
+        params["blocks"] = ShardedStack(hosted["blocks"], gather_b,
+                                        prefetch=not blocking)
+        return params
+
+    def _init():
+        return _init_serve_state(cfg, local, ctx.max_seq, dev)
+
+    @torch.no_grad()
+    def _prefill(hosted, toks, true_len, extra=None):
+        # batch 1 on every process from the same gathered weights; the
+        # splice distributes the result to the slot's owner
+        cache1 = init_cache(cfg, 1, ctx.max_seq, dtype=torch_dtype(cfg),
+                            device=dev)
+        toks = torch.as_tensor(toks, dtype=torch.long, device=dev)
+        if extra is not None:
+            extra = torch.as_tensor(extra, dtype=torch.float32, device=dev)
+        return prefill(_assemble(hosted), cfg, toks, cache1,
+                       extra_embeds=extra, true_len=true_len)
+
+    @torch.no_grad()
+    def _decode(hosted, tok, state):
+        tok = torch.as_tensor(tok, dtype=torch.long, device=dev)
+        logits, state = decode_step(_assemble(hosted), cfg,
+                                    tok[g * local:(g + 1) * local], state)
+        if p == 1:
+            return logits, state
+        out = logits.new_empty((ctx.slots, *logits.shape[1:]))
+        dist.all_gather_into_tensor(out, logits.contiguous(),
+                                    group=topo.group)
+        return out, state
+
+    @torch.no_grad()
+    def _splice(state, st1, slot):
+        sp = lambda big, small, axis=_BATCH_AXIS: comm.kv_splice(
+            big, small=small, slot=int(slot), batch_axis=axis,
+            strategy=ctx.kv_strategy)
+        _tree.tree_map(sp, state.cache, st1.cache)
+        if state.enc_kv is not None:
+            _tree.tree_map(sp, state.enc_kv, st1.enc_kv)
+        sp(state.length, st1.length, 0)
+        return state
+
+    return ServeStep(
+        hosting="lane_zero3", cfg=cfg, ctx=ctx, prepare=prepare,
+        init_state=_init, prefill=_prefill, decode=_decode, splice=_splice,
+        collectives={"weights": ("prefetch_allgather", "blocking"
+                                 if blocking else "lane_pipelined"),
+                     "kv": ("kv_splice", ctx.kv_strategy)},
+        gathers=lambda: gather_b.gathers)
 
 
 HOSTINGS = {"replicated": _serve_replicated, "lane_zero3": _serve_zero3}
 
 
 def build_serve_step(cfg: ModelConfig, *, max_seq: int, slots: int,
-                     hosting: str = "replicated",
-                     device="cuda") -> ServeStep:
-    """Build ``hosting`` for ``cfg`` on ``device``."""
+                     hosting: str = "replicated", device="cuda",
+                     topo: Optional[LaneTopology] = None,
+                     prefetch_blocks: int = 0, kv_strategy: str = "lane",
+                     model_parallel: int = 1) -> ServeStep:
+    """Build ``hosting`` for ``cfg`` on ``device`` (``lane_zero3``: over
+    ``topo``; see ``ServeContext``)."""
     if hosting not in HOSTINGS:
         raise ValueError(f"unknown serving hosting {hosting!r}; have "
                          f"{tuple(HOSTINGS)}")
+    if model_parallel > 1 and hosting != "lane_zero3":
+        raise ValueError(
+            f"model_parallel > 1 needs hosting='lane_zero3' (got "
+            f"{hosting!r}); replicated hosting has no mesh to carry the "
+            f"'model' axis")
     check_family(cfg)
     ctx = ServeContext(cfg=cfg, max_seq=int(max_seq), slots=int(slots),
-                       device=resolve_device(device))
+                       device=resolve_device(device), topo=topo,
+                       prefetch_blocks=int(prefetch_blocks),
+                       kv_strategy=kv_strategy,
+                       model_parallel=int(model_parallel))
     return HOSTINGS[hosting](ctx)
+
+
+# ---------------------------------------------------------------------------
+# checkpoint -> serving weights
+# ---------------------------------------------------------------------------
+
+def load_serve_params(ckpt_dir: str, cfg: ModelConfig, step=None, *,
+                      device="cuda"):
+    """Replicated serving weights from a training checkpoint of any
+    layout (``repro``'s or the port's), on ``device``: the canonical
+    leaves read once (crc-verified, by the manifest's dtypes) and lifted
+    to the replicated form by ``launch.steps.load_canonical_params``
+    (``state_to_replicated``, the path a training restart takes), the
+    optimizer state dropped, each
+    parameter cast to the model's dtype.  A ``lane_zero3`` step re-shards
+    them in ``prepare``, so a checkpoint written at p processes serves
+    at any p'.  Returns ``(params, step)``."""
+    from repro_torch.launch.steps import load_canonical_params
+    dev = resolve_device(device)
+    params, got = load_canonical_params(ckpt_dir, cfg, step)
+    params_t = init_model(cfg, device="meta")
+    params = _tree.tree_map(lambda v, t: v.to(device=dev, dtype=t.dtype),
+                            params, params_t)
+    return params, got

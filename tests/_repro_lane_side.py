@@ -7,6 +7,7 @@ count=<devices>`` (the test process never sets it).
   python tests/_repro_lane_side.py gradsync IN.npz OUT.npz   # 4 devices
   python tests/_repro_lane_side.py gradsync_tree IN.npz OUT.npz  # 4
   python tests/_repro_lane_side.py train OUT.json ARGV...    # 4 devices
+  python tests/_repro_lane_side.py ckpt OUTDIR GS,GS ARGV...  # 4 devices
 
 ``collectives`` runs every case of ``_collective_grid`` through
 ``repro``'s LaneComm on repro's own conformance meshes, ``zero`` its
@@ -15,7 +16,9 @@ runs ``LaneComm.grad_sync`` on a (pod 2 × data 2) mesh over the per-rank
 gradient trees in IN.npz, ``gradsync_tree`` the same for nested model
 gradient trees; ``train`` runs ``repro.launch.train.main``
 with ARGV for each ``--arch`` given and records every step's loss at
-full precision (its log lines print 4 decimals).
+full precision (its log lines print 4 decimals); ``ckpt`` runs
+``repro.launch.train.main`` with ARGV once per comma-separated
+``--gradsync`` value GS, each with ``--ckpt OUTDIR/GS``.
 """
 import builtins
 import json
@@ -178,6 +181,14 @@ def train(out_path, argv):
     pathlib.Path(out_path).write_text(json.dumps(losses))
 
 
+def ckpt(out_dir, strategies, argv):
+    import repro.launch.train as jtrain
+    for gs in strategies.split(","):
+        rc = jtrain.main([*argv, "--gradsync", gs, "--ckpt",
+                          str(pathlib.Path(out_dir) / gs)])
+        assert rc == 0, (gs, rc)
+
+
 if __name__ == "__main__":
     cmd, *rest = sys.argv[1:]
     if cmd == "collectives":
@@ -188,5 +199,7 @@ if __name__ == "__main__":
         gradsync_tree(*rest)
     elif cmd == "gradsync":
         gradsync(*rest)
+    elif cmd == "ckpt":
+        ckpt(rest[0], rest[1], rest[2:])
     else:
         train(rest[0], rest[1:])

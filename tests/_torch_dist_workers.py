@@ -191,7 +191,7 @@ def blockstack_rank(runs, seq=16):
         mat = lay_b.flatten(g_tree, pad_to=B * topo.p())
         res = {"replicated": (float(loss), [
             zero3_param_shard(row, topo, B).numpy() for row in mat])}
-        state, _ = steps.init_lane_train_state(run, params, comm,
+        state, _, _ = steps.init_lane_train_state(run, params, comm,
                                                single=False, device="cpu")
         ext = lays["extras"].unflatten_row(comm.prefetch_allgather(
             state["extras"], num_blocks=steps.resolve_extras_prefetch_blocks(
@@ -320,3 +320,309 @@ def zero_witness_rank(archs, steps_n=3, batch=2, seq=32):
                 steps_n=steps_n, batch=batch, seq=seq, device="cpu",
                 opt=opt, full=False)[0]
     return out
+
+
+# ---------------------------------------------------------------------------
+# checkpoints (tests/test_torch_train_ckpt.py)
+# ---------------------------------------------------------------------------
+
+def canonical_digest(ckpt_dir, arch, step=None):
+    """sha256 of a checkpoint's state in the replicated form (parameters
+    and moments, every leaf's bytes in tree order, and the step count):
+    equal for two checkpoints iff their canonical values are."""
+    import hashlib
+    from repro_torch import _tree
+    from repro_torch.configs import resolve
+    from repro_torch.launch import steps
+    cfg = resolve(arch, smoke=True)
+    man, state, _ = steps.load_canonical_state(ckpt_dir, cfg, step)
+    params, opt = steps.state_to_replicated(cfg, man["layout"], state)
+    h = hashlib.sha256()
+    for tree in (params, opt["m"], opt["v"]):
+        for t in _tree.leaves(tree):
+            h.update(t.contiguous().view(torch.uint8).numpy().tobytes())
+    h.update(str(opt["count"]).encode())
+    return h.hexdigest()
+
+
+def train_ckpt_rank(tmp, arch, npz, base):
+    """On a 4-rank world (2 pods x 2): ``launch.train.run`` with ``base``
+    argv and ``--ckpt``, from the ``repro``-layout weights in ``npz``:
+
+      * ``--gradsync`` native, lane_zero1 and lane_zero3, 2 steps, a
+        checkpoint at step 2 in ``tmp/<gradsync>``;
+      * lane_zero3 4 steps with a checkpoint every 2 (``tmp/resume``),
+        then, step 4 removed, the same run again (it resumes at step 2),
+        then once more (resume at completion: nothing to do);
+      * the lane_zero3 checkpoint restored across layouts and rank counts
+        and written again: zero1 on a 2-process topology (two replicas
+        of it in the world, ``tmp/chain_zero1_p2``), replicated
+        (``tmp/chain_replicated_p1``), then back to zero3 and zero1 at
+        p = 4 (``tmp/chain_zero3_p4``, ``tmp/chain_zero1_p4``).
+
+    Returns {name: losses} (and the committed steps of ``tmp/resume``)."""
+    import shutil
+    import torch.distributed as dist
+    from repro_torch.bridge import params_from_repro
+    from repro_torch.checkpoint import (REPLICATED, committed_steps,
+                                        save_checkpoint)
+    from repro_torch.comm import LaneComm
+    from repro_torch.configs import RunConfig, resolve
+    from repro_torch.launch import mesh, steps
+    from repro_torch.launch.train import run
+    cfg = resolve(arch, smoke=True)
+    tmp = pathlib.Path(tmp)
+    lead = dist.get_rank() == 0
+    weights = lambda: params_from_repro(load_tree(npz), cfg, device="cpu")
+    argv = ["--arch", arch, *base, "--device", "cpu"]
+    out = {}
+    for gs in ("native", "lane_zero1", "lane_zero3"):
+        out[gs] = run([*argv, "--steps", "2", "--gradsync", gs, "--ckpt",
+                       str(tmp / gs), "--ckpt-every", "2"],
+                      params=weights())[0]
+    z3 = [*argv, "--gradsync", "lane_zero3", "--steps", "4", "--ckpt",
+          str(tmp / "resume"), "--ckpt-every", "2"]
+    out["uninterrupted"] = run(z3, params=weights())[0]
+    dist.barrier()
+    if lead:
+        shutil.rmtree(tmp / "resume" / "step_4")
+    dist.barrier()
+    out["resumed"] = run(z3, params=weights())[0]
+    out["completed"] = run(z3, params=weights())[0]
+    out["resume_steps"] = committed_steps(tmp / "resume")
+
+    def rewrite(src, name, run_cfg, layout, comm):
+        (params, opt), _ = steps.restore_lane_train_state(
+            str(src), run_cfg, layout, comm, device="cpu")
+        tree = steps.state_to_host(run_cfg, layout, params, opt, comm)
+        if lead:
+            save_checkpoint(str(tmp / name), 2, tree, layout)
+        dist.barrier()
+        return tmp / name
+
+    world = mesh.new_lane_topology(2, 2)
+    half = mesh.new_lane_topology(2, 1, replicas=2)
+    template = weights()
+    z1 = RunConfig(model=cfg, gradsync="lane_zero1")
+    src = rewrite(tmp / "lane_zero3", "chain_zero1_p2", z1,
+                  steps.zero1_checkpoint_layout(template, 2),
+                  LaneComm(half))
+    src = rewrite(src, "chain_replicated_p1", RunConfig(model=cfg),
+                  REPLICATED, None)
+    rewrite(src, "chain_zero3_p4",
+            RunConfig(model=cfg, gradsync="lane_zero3"),
+            steps.zero3_checkpoint_layout(cfg, 2, 2), LaneComm(world))
+    rewrite(src, "chain_zero1_p4", z1,
+            steps.zero1_checkpoint_layout(template, 2), LaneComm(world))
+    return out
+
+
+def _hooked_loader(hook):
+    """Make ``launch.train``'s loader call ``hook(step)`` before each
+    batch (this process only)."""
+    import repro_torch.launch.train as T
+    real = T.make_loader
+
+    class Hooked:
+        def __init__(self, inner):
+            self.inner = inner
+
+        def batch_slice(self, step, row0, rows):
+            hook(step)
+            return self.inner.batch_slice(step, row0, rows)
+
+    T.make_loader = lambda *a, **kw: Hooked(real(*a, **kw))
+
+
+def emergency_rank(tmp, case, argv):
+    """A spawned rank: ``launch.train.run`` with ``argv`` and ``--ckpt
+    tmp`` under an injected fault at step 2: ``"sigterm"`` (the process
+    sends itself SIGTERM; on a world of several ranks only rank 1 does),
+    ``"crash"`` (the loader raises), ``"writer"`` (SIGTERM, and the
+    checkpoint writer fails).  Returns (the exception's text or None,
+    committed steps, whether the SIGTERM handler was restored, the
+    losses, stdout, stderr)."""
+    import torch.distributed as dist
+    import io
+    import contextlib
+    import signal
+    import repro_torch.checkpoint.store as store
+    from repro_torch.checkpoint import committed_steps
+    from repro_torch.launch.train import run
+
+    def hook(step):
+        if step == 2:
+            if case == "crash":
+                raise RuntimeError("injected data failure")
+            if dist.get_world_size() == 1 or dist.get_rank() == 1:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+    if case == "writer":
+        def boom(*a, **kw):
+            raise RuntimeError("disk full")
+        store.save_checkpoint = boom
+    _hooked_loader(hook)
+    before = signal.getsignal(signal.SIGTERM)
+    err, losses = None, None
+    buf_out, buf_err = io.StringIO(), io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf_out), \
+                contextlib.redirect_stderr(buf_err):
+            losses = run([*argv, "--ckpt", str(tmp)])[0]
+    except RuntimeError as e:
+        err = str(e)
+    return (err, committed_steps(tmp), signal.getsignal(signal.SIGTERM)
+            is before, losses, buf_out.getvalue(), buf_err.getvalue())
+
+
+# ---------------------------------------------------------------------------
+# lane_zero3 serving (tests/test_torch_serve_zero3.py)
+# ---------------------------------------------------------------------------
+
+SERVE_MAX_SEQ = 96
+
+
+def _serve_tokens(params, cfg, kind, *, slots, hosting="replicated",
+                  topo=None, sampler=None, **kw):
+    from repro_torch.serve import ContinuousBatcher, make_scenario
+    reqs = make_scenario(cfg, kind=kind, n=6, seed=1,
+                         max_seq=SERVE_MAX_SEQ)
+    eng = ContinuousBatcher(params, cfg, slots=slots, max_seq=SERVE_MAX_SEQ,
+                            sampler=sampler, hosting=hosting, topo=topo,
+                            device="cpu", **kw)
+    done, stats = eng.run(reqs)
+    return {r.rid: list(r.out) for r in done}, stats, eng
+
+
+def serve_zero3_rank(npz_by_arch, cases, samplers, tmp):
+    """On a 4-rank world (2 x 2): for each ``(name, arch, kind, prefetch,
+    kv)`` of ``cases``, the tokens of replicated hosting (4 slots) and of
+    ``lane_zero3`` (8 slots) from the ``repro``-layout weights in
+    ``npz_by_arch[arch]``; for each sampler (temperature, top_p, seed)
+    replicated at 2 slots against lane_zero3 at 8; llama3.2-3b served
+    from the checkpoints of a 2-step ``--gradsync`` native / lane_zero1 /
+    lane_zero3 run (``load_serve_params``); ``kv_splice`` native against
+    lane on random leaves; the layer gathers of one prefill and one
+    decode; and the errors of the hybrid family and of slots % p.
+    Returns a dict of those results."""
+    import torch.distributed as dist
+    from repro_torch.bridge import params_from_repro
+    from repro_torch.comm import LaneComm
+    from repro_torch.configs import resolve
+    from repro_torch.launch import mesh
+    from repro_torch.launch.train import run
+    from repro_torch.serve import SamplerConfig, build_serve_step
+    from repro_torch.serve import load_serve_params
+    topo = mesh.new_lane_topology(2, 2)
+    cfgs = {a: resolve(a, smoke=True) for a in npz_by_arch}
+    weights = {a: params_from_repro(load_tree(p), cfgs[a], device="cpu")
+               for a, p in npz_by_arch.items()}
+    out = {"tokens": {}, "sampled": {}, "ckpt": {}}
+    for name, arch, kind, prefetch, kv in cases:
+        cfg, params = cfgs[arch], weights[arch]
+        rep, _, _ = _serve_tokens(params, cfg, kind, slots=4)
+        z3, stats, eng = _serve_tokens(params, cfg, kind, slots=8,
+                                       hosting="lane_zero3", topo=topo,
+                                       prefetch_blocks=prefetch,
+                                       kv_strategy=kv)
+        out["tokens"][name] = (rep, z3, stats["hosting"],
+                               eng.step.collectives)
+    llama = "llama3.2-3b"
+    for t, top_p, seed in samplers:
+        s = SamplerConfig(temperature=t, top_p=top_p, seed=seed)
+        rep, _, _ = _serve_tokens(weights[llama], cfgs[llama], "short_chat",
+                                  slots=2, sampler=s)
+        z3, _, _ = _serve_tokens(weights[llama], cfgs[llama], "short_chat",
+                                 slots=8, sampler=s, hosting="lane_zero3",
+                                 topo=topo)
+        out["sampled"][t] = (rep, z3)
+    for gs in ("native", "lane_zero1", "lane_zero3"):
+        ck = str(pathlib.Path(tmp) / gs)
+        run(["--arch", llama, "--smoke", "--batch", "8", "--seq", "32",
+             "--steps", "2", "--ckpt", ck, "--ckpt-every", "2", "--gradsync",
+             gs, "--pods", "2", "--device", "cpu"],
+            params=params_from_repro(load_tree(npz_by_arch[llama]),
+                                     cfgs[llama], device="cpu"))
+        params, step = load_serve_params(ck, cfgs[llama], device="cpu")
+        rep, _, _ = _serve_tokens(params, cfgs[llama], "short_chat", slots=2)
+        z3, _, _ = _serve_tokens(params, cfgs[llama], "short_chat", slots=8,
+                                 hosting="lane_zero3", topo=topo)
+        out["ckpt"][gs] = (step, rep, z3, _manifest_kind(ck))
+    # kv_splice: native and lane into every global slot, bf16 and int32
+    comm = LaneComm(topo)
+    g = topo.global_rank()
+    rng = np.random.default_rng(5)
+    big0 = torch.from_numpy(rng.normal(size=(3, 2, 5, 3)).astype(np.float32))
+    splices = {}
+    for dt in (torch.bfloat16, torch.int32):
+        for slot in range(8):
+            small = torch.from_numpy(rng.normal(size=(3, 1, 5, 3)).astype(
+                np.float32) * 100).to(dt)
+            if topo.lane_rank() != 0:    # the root node's copy counts
+                small = small + 1
+            res = {}
+            for kv in ("native", "lane"):
+                big = (big0 * 100).to(dt)
+                comm.kv_splice(big, small=small, slot=slot, batch_axis=1,
+                               strategy=kv)
+                res[kv] = _numpy(big.float() if dt == torch.bfloat16
+                                 else big)
+            splices[str(dt), slot] = (res, _numpy(
+                small.float() if dt == torch.bfloat16 else small))
+    out["splice"] = splices
+    # one prefill and one decode: L layer gathers each
+    cfg = cfgs[llama]
+    step = build_serve_step(cfg, max_seq=32, slots=8, hosting="lane_zero3",
+                            topo=topo, device="cpu")
+    hosted = step.prepare(weights[llama])
+    state = step.init_state()
+    _, st1 = step.prefill(hosted, np.ones((1, 8), np.int64), 8)
+    after_prefill = step.gathers()
+    step.splice(state, st1, 5)
+    logits, state = step.decode(hosted, np.ones((8, 1), np.int64), state)
+    out["gathers"] = (cfg.num_layers, after_prefill, step.gathers(),
+                      tuple(logits.shape))
+    errors = {}
+    for name, kw in (("hybrid", dict(cfg=resolve("zamba2-7b", smoke=True),
+                                     slots=8)),
+                     ("slots", dict(cfg=cfg, slots=6))):
+        try:
+            build_serve_step(max_seq=32, hosting="lane_zero3", topo=topo,
+                             device="cpu", **kw)
+            errors[name] = None
+        except ValueError as e:
+            errors[name] = str(e)
+    out["errors"] = errors
+    dist.barrier()
+    return out
+
+
+def _manifest_kind(ck):
+    import json
+    from repro_torch.checkpoint import latest_step
+    d = pathlib.Path(ck) / f"step_{latest_step(ck)}"
+    return json.loads((d / "manifest.json").read_text())["layout"]["kind"]
+
+
+def serve_gathers_rank(arch):
+    """One rank (1 x 1 topology): the layer gathers of one lane_zero3
+    prefill and one decode, and the tokens against replicated hosting."""
+    from repro_torch.configs import resolve
+    from repro_torch.launch import mesh
+    from repro_torch.models import init_model
+    from repro_torch.serve import build_serve_step
+    topo = mesh.new_lane_topology(1, 1)
+    cfg = resolve(arch, smoke=True)
+    params = init_model(cfg, seed=0, device="cpu")
+    step = build_serve_step(cfg, max_seq=32, slots=2, hosting="lane_zero3",
+                            topo=topo, device="cpu")
+    hosted = step.prepare(params)
+    state = step.init_state()
+    _, st1 = step.prefill(hosted, np.ones((1, 8), np.int64), 8)
+    n1 = step.gathers()
+    step.splice(state, st1, 1)
+    step.decode(hosted, np.ones((2, 1), np.int64), state)
+    rep, _, _ = _serve_tokens(params, cfg, "mixed", slots=2)
+    z3, _, _ = _serve_tokens(params, cfg, "mixed", slots=2,
+                             hosting="lane_zero3", topo=topo)
+    return cfg.num_layers, n1, step.gathers(), rep, z3

@@ -192,8 +192,8 @@ def test_hw_defaults_are_an_h100_hosts():
 # ---------------------------------------------------------------------------
 
 def test_unported_cells_name_their_items():
-    """What stays unported names its item (``kv_splice``: 9b;
-    ``lane_quorum``, ``moe_route``: 10); the ZeRO cells resolve."""
+    """What stays unported names its item (``lane_quorum``,
+    ``moe_route``: 10); the ZeRO and ``kv_splice`` cells resolve."""
     topo = LaneTopology(1, 1, lane_rank=0, node_rank=0, node_group=None,
                         lane_group=None, group=None, node_ranks=[0],
                         lane_ranks=[0], ranks=[0])
@@ -211,8 +211,8 @@ def test_unported_cells_name_their_items():
     for strategy in ("lane_pipelined", "blocking"):
         assert get_impl("prefetch_allgather", strategy).strategy == strategy
     x = torch.zeros(4)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        comm.kv_splice(x, small=x, slot=0)
+    for strategy in ("native", "lane"):
+        assert get_impl("kv_splice", strategy).strategy == strategy
     with pytest.raises(NotImplementedError, match="item 10"):
         comm.moe_route(x)
     with pytest.raises(ValueError, match="registered strategies"):

@@ -146,7 +146,8 @@ def test_eos_and_sampler_limits(models):
     assert sampled.finish_reason == "length"
     assert len(sampled.out) == req.max_new_tokens
     assert all(0 <= t < tc.vocab_size for t in sampled.out)
-    with pytest.raises(NotImplementedError, match="lane_zero3"):
+    with pytest.raises(ValueError, match="lane_zero3 serving needs a "
+                       "topology"):
         build_serve_step(tc, max_seq=MAX_SEQ, slots=2, hosting="lane_zero3",
                          device="cpu")
     with pytest.raises(ValueError, match="unknown serving hosting"):

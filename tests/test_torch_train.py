@@ -375,8 +375,8 @@ def test_train_main_microbatch_and_remat_on_cpu():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--ckpt", "runs/x"], "item 9b"),
-    (["--ckpt-every", "5"], "item 9b"),
+    (["--gradsync", "auto"], "item 10"),
+    (["--ckpt", "runs/x", "--fault-plan", "seed:1"], "item 10"),
     (["--fault-plan", "seed:1"], "item 10"),
     (["--tune"], "item 10"),
     (["--tuning-cache", "t.json"], "item 10"),

@@ -190,9 +190,7 @@ def test_prefetch_blocks_follows_fsdp_prefetch():
     run = RunConfig(model=resolve("llama3.2-3b", smoke=True),
                     gradsync="lane_zero3", fsdp_prefetch=-1)
     assert CommConfig.from_run(run).prefetch_blocks == -1
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        LaneComm(_topo()).kv_splice(torch.zeros(2), small=torch.zeros(2),
-                                    slot=0)
+    assert get_impl("kv_splice", "lane").strategy == "lane"
 
 
 @pytest.mark.parametrize("pods,gradsync,n,want", [
