@@ -160,12 +160,35 @@ and the script exits non-zero:
      the ``native`` kv_splice: identical tokens, K2 48 per prefill under
      each; llama3.2-3b from phase 5's weights under lane_zero3: phase 5's
      tokens, K1 224; prefill ms at T=512, decode ms, layer gathers per
-     decode step (L) and peak memory per hosting; phase 10's seconds.
+     decode step (L) and peak memory per hosting; phase 10's seconds;
+ 11. the fault-tolerant runtime (``runtime/``, the ``lane_quorum``
+     step and sync, ``launch/train.py``'s recovery ladder) on phase 10's
+     one-rank world and 1 x 1 topology, its checkpoint directories
+     under build/ removed at the end, also on failure:
+     (a) llama3.2-3b at full width, bf16, 4 x 1024 tokens, 4 steps
+     through ``launch.train.run`` with ``--gradsync lane``, then
+     ``--gradsync lane_quorum --fault-plan pod_slow@2:pod=0
+     --quorum-staleness 2``: steps 0-1 (the full quorum) bit-identical
+     to lane's, step 2 DEGRADED with a loss of exactly 0.0, HEALTHY ->
+     DEGRADED at 2 and DEGRADED -> HEALTHY at 3, step 3 finite, K1 28 a
+     step in both; each run's step ms;
+     (b) llama3.2-3b at full width cut to 2 layers, bf16, 1 x 256,
+     ``--ckpt --ckpt-every 2 --steps 4 --fault-plan
+     "ckpt_io@2:count=2;corrupt_leaf@4:leaf=1"``: step 2 committed on
+     its third attempt and verified, step 4's flipped byte caught, and a
+     second run with ``--steps 6`` resumed from step 2 and committed step
+     6;
+     (c) at (b)'s size, ``--gradsync lane_quorum --fault-plan
+     pod_lost@1:pod=0 --quorum-staleness 1``: RESTART at step 2, its
+     emergency checkpoint committed and verified, then ``repro``'s
+     ValueError ("all slices of the outer batch axis lost"), which the
+     phase requires.
 
 Both kernels choose by dtype inside their C entry point: bf16 (the
 serving and training paths) runs on the tensor cores, f32 on the CUDA
 cores.  The line before the last is a JSON object with K1's and K2's
-numbers (launches per path, the training runs and phase 10 included);
+numbers (launches per path, the training runs and phases 10 and 11
+included);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1449,20 +1472,20 @@ class StepClock:
         def build(*args, **kw):
             step = self.build(*args, **kw)
 
-            def timed_step(*args):
+            def timed_step(*args, **kw):
                 torch.cuda.synchronize()
                 if len(self.seconds) == self.trace_at:
                     self.prof = profile(activities=[ProfilerActivity.CPU,
                                                     ProfilerActivity.CUDA])
                     self.prof.__enter__()
                 t0 = time.perf_counter()
-                out = step(*args)
+                out = step(*args, **kw)
                 torch.cuda.synchronize()
                 self.seconds.append(time.perf_counter() - t0)
                 if len(self.seconds) == self.trace_at + 1:
                     self.prof.__exit__(None, None, None)
                 return out
-            timed_step.full_params = step.full_params
+            timed_step.__dict__.update(step.__dict__)
             return timed_step
         train.build_train_step = build
         return self
@@ -1870,7 +1893,8 @@ def phase_lane_cpu() -> None:
 
 
 def phase_lanes(name, first_loss, served) -> dict:
-    """Phases 8, 9 and 10 on one NCCL world (8d on the CPU after it)."""
+    """Phases 8, 9, 10 and 11 on one NCCL world (8d on the CPU after
+    it)."""
     topo, init = timed("8a lane world", phase_lane_world)
     try:
         timed("8b lane conformance", phase_lane_conformance, topo)
@@ -1881,6 +1905,8 @@ def phase_lanes(name, first_loss, served) -> dict:
                                   topo, name, first_loss))
         launches.update(timed("10 checkpoints and lane_zero3 serving",
                               phase_ckpt, topo, name, served))
+        launches.update(timed("11 faults, quorum and restarts",
+                              phase_faults, topo, name))
     finally:
         dist.destroy_process_group()
         init.unlink(missing_ok=True)
@@ -2581,6 +2607,209 @@ def phase_ckpt(topo, name, served) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the fault-tolerant runtime on the one-rank world
+# ---------------------------------------------------------------------------
+
+FAULT_STEPS = 4
+FAULT_ARCH = "llama3.2-3b"
+# 11b and 11c: FAULT_ARCH at full width cut to CHECK_LAYERS layers, bf16,
+# 1 x CHECK_T tokens, registered under this name for launch.train.run
+FAULT_CUT = "llama3.2-3b-cut"
+FAULT_PLAN_A = "pod_slow@2:pod=0"
+
+
+def _fault_root() -> pathlib.Path:
+    return pathlib.Path(__file__).resolve().parent / "build" / "faults"
+
+
+def _run_logged(argv, topo, **kw):
+    """``train.run(argv, topo=topo)``: (its result, stdout, stderr), both
+    streams echoed after the run."""
+    import contextlib
+    import io
+    out, err = io.StringIO(), io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            return train.run(argv, topo=topo, **kw), out.getvalue(), \
+                err.getvalue()
+    finally:
+        sys.stdout.write(out.getvalue())
+        sys.stderr.write(err.getvalue())
+        sys.stdout.flush()
+
+
+def phase_fault_quorum(topo, name) -> dict:
+    """11a: FAULT_ARCH at full width, bf16, TRAIN_BATCH x TRAIN_SEQ,
+    FAULT_STEPS steps through ``launch.train.run`` on the 1 x 1 topology
+    (``single=False``), first ``--gradsync lane``, then ``--gradsync
+    lane_quorum --fault-plan FAULT_PLAN_A --quorum-staleness 2``: steps
+    0-1 (the full quorum) bit-identical to lane's; step 2 DEGRADED (the
+    lone pod masked: loss exactly 0.0, the gradient 0, AdamW moving by its
+    moments), HEALTHY -> DEGRADED at 2 and DEGRADED -> HEALTHY at 3, step
+    3 finite; K1 once per layer and step in both; each run's step ms
+    (median of steps 1-3, synchronised)."""
+    cfg = resolve(FAULT_ARCH)
+    base = ["--arch", FAULT_ARCH, "--steps", str(FAULT_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--log-every", "1",
+            "--device", "cuda"]
+    runs, out = {}, {}
+    for label, extra in (("lane", ["--gradsync", "lane"]),
+                         ("lane_quorum", ["--gradsync", "lane_quorum",
+                                          "--fault-plan", FAULT_PLAN_A,
+                                          "--quorum-staleness", "2"])):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        stats = {}
+        with StepClock(trace_at=10 ** 9) as clock:
+            fa.launches = k2.launches = 0
+            losses = train.run(base + extra, topo=topo, stats=stats)[0]
+            torch.cuda.synchronize()
+            launches = {"flash_attention": fa.launches, "ssd": k2.launches}
+        runs[label] = (losses, stats["events"], clock.seconds,
+                       torch.cuda.max_memory_allocated() / 2**30)
+        out[f"fault {label}"] = launches
+        want = {"flash_attention": cfg.num_layers * FAULT_STEPS, "ssd": 0}
+        ms = float(np.median(clock.seconds[1:])) * 1e3
+        log("faults", f"{name} | {FAULT_ARCH} {label}"
+            + (f" --fault-plan {FAULT_PLAN_A} --quorum-staleness 2"
+               if label == "lane_quorum" else "")
+            + f", bf16, {TRAIN_BATCH} x {TRAIN_SEQ}: losses {losses}; "
+            f"step ms {[round(x * 1e3, 1) for x in clock.seconds]} "
+            f"(median of steps 1-{FAULT_STEPS - 1} {ms:.1f} ms); launches "
+            f"{launches} (want {want}); peak {runs[label][3]:.2f} GiB")
+        if launches != want or len(losses) != FAULT_STEPS:
+            raise RuntimeError(f"{label}: launches {launches}, want {want}; "
+                               f"losses {losses}")
+    (lane, _, t_lane, _), (quorum, events, t_q, _) = runs["lane"], \
+        runs["lane_quorum"]
+    got = [(e.step, e.old, e.new) for e in events]
+    want_ev = [(2, "HEALTHY", "DEGRADED"), (3, "DEGRADED", "HEALTHY")]
+    log("faults", f"{name} | full quorum (steps 0-1) "
+        + ("bit-identical to" if quorum[:2] == lane[:2] else "DIFFERS from")
+        + f" lane; step 2 DEGRADED, loss {quorum[2]!r}; step 3 "
+        f"{quorum[3]!r}; transitions {got}; step ms lane "
+        f"{np.median(t_lane[1:]) * 1e3:.1f}, lane_quorum "
+        f"{np.median(t_q[1:]) * 1e3:.1f} (the DEGRADED step "
+        f"{t_q[2] * 1e3:.1f})")
+    if quorum[:2] != lane[:2] or quorum[2] != 0.0 \
+            or not np.isfinite(quorum[3]) or got != want_ev:
+        raise RuntimeError(f"the quorum run {quorum} against lane {lane}, "
+                           f"transitions {got}")
+    return out
+
+
+def _cut_config():
+    """Register FAULT_CUT: FAULT_ARCH at full width, CHECK_LAYERS layers."""
+    from repro_torch.configs.base import register
+    cut = lambda: dataclasses.replace(resolve(FAULT_ARCH),
+                                      num_layers=CHECK_LAYERS)
+    register(FAULT_CUT, cut, cut)
+    return cut()
+
+
+def phase_fault_ckpt(topo, root, name) -> dict:
+    """11b: FAULT_CUT, bf16, 1 x CHECK_T tokens, ``--ckpt --ckpt-every 2
+    --steps 4 --fault-plan "ckpt_io@2:count=2;corrupt_leaf@4:leaf=1"``:
+    the step-2 save fails twice, commits on its third attempt and
+    verifies; step 4 commits, then a flipped byte fails its
+    verification; a second run with ``--steps 6`` resumes from step 2 and
+    commits step 6, which verifies."""
+    from repro_torch.checkpoint import latest_step, verify_checkpoint
+    cfg = _cut_config()
+    d = root / "ckpt"
+    argv = ["--arch", FAULT_CUT, "--batch", "1", "--seq", str(CHECK_T),
+            "--log-every", "1", "--device", "cuda", "--ckpt", str(d),
+            "--ckpt-every", "2"]
+    fa.launches = k2.launches = 0
+    t0 = time.perf_counter()
+    (losses, _, _), _, err = _run_logged(
+        argv + ["--steps", "4", "--fault-plan",
+                "ckpt_io@2:count=2;corrupt_leaf@4:leaf=1"], topo)
+    verify_checkpoint(str(d), 2)
+    retried = "attempt 1/3 failed" in err and "attempt 2/3 failed" in err
+    try:
+        verify_checkpoint(str(d), 4)
+        caught = False
+    except CheckpointCorruptError:
+        caught = True
+    (resumed, _, _), out, _ = _run_logged(argv + ["--steps", "6"], topo)
+    verify_checkpoint(str(d), 6)
+    launches = {"flash_attention": fa.launches, "ssd": k2.launches}
+    ok = retried and caught and "resumed from step 2" in out \
+        and latest_step(str(d)) == 6 and len(resumed) == 4
+    log("faults", f"{name} | {FAULT_CUT} ({CHECK_LAYERS} layers, full "
+        f"width), bf16, 1 x {CHECK_T}: step 2 retried twice and committed: "
+        f"{retried}, verifies; step 4's flipped byte caught: {caught}; the "
+        f"second run resumed from step 2: {'resumed from step 2' in out}, "
+        f"committed step 6, verifies; losses {losses} then {resumed}; "
+        f"launches {launches}; {time.perf_counter() - t0:.1f} s")
+    want = cfg.num_layers * (4 + 4)
+    if not ok or launches["flash_attention"] != want:
+        raise RuntimeError(f"the checkpoint rungs failed (launches "
+                           f"{launches}, want {want})")
+    return {"fault ckpt": launches}
+
+
+def phase_fault_restart(topo, root, name) -> dict:
+    """11c: the lone pod lost, ``--gradsync lane_quorum --fault-plan
+    pod_lost@1:pod=0 --quorum-staleness 1 --steps 4 --ckpt`` at 11b's
+    size: DEGRADED at 1, RESTART at 2, the emergency checkpoint of step 2
+    committed and verified, then ``repro``'s ValueError ("all slices of
+    the outer batch axis lost") from the re-plan; the phase fails if it
+    does not raise."""
+    from repro_torch.checkpoint import latest_step, verify_checkpoint
+    cfg = _cut_config()
+    d = root / "restart"
+    argv = ["--arch", FAULT_CUT, "--batch", "1", "--seq", str(CHECK_T),
+            "--log-every", "1", "--device", "cuda", "--ckpt", str(d),
+            "--gradsync", "lane_quorum", "--fault-plan", "pod_lost@1:pod=0",
+            "--quorum-staleness", "1", "--steps", "4"]
+    fa.launches = k2.launches = 0
+    stats = {}
+    try:
+        _run_logged(argv, topo, stats=stats)
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    launches = {"flash_attention": fa.launches, "ssd": k2.launches}
+    committed = latest_step(str(d))
+    verify_checkpoint(str(d), 2)
+    got = [(e.step, e.old, e.new) for e in stats.get("events", [])]
+    log("faults", f"{name} | {FAULT_CUT} lane_quorum, the lone pod lost at "
+        f"step 1, K=1: transitions {got}; emergency checkpoint step "
+        f"{committed} committed and verified; the re-plan raised "
+        f"{raised!r}; launches {launches}")
+    if raised != "all slices of the outer batch axis lost" \
+            or committed != 2 or got != [(1, "HEALTHY", "DEGRADED"),
+                                         (2, "DEGRADED", "RESTART")] \
+            or launches["flash_attention"] != cfg.num_layers * 2:
+        raise RuntimeError("the RESTART rung did not commit, then refuse")
+    return {"fault restart": launches}
+
+
+def phase_faults(topo, name) -> dict:
+    """Phase 11; its checkpoint directories (under build/, ignored by git)
+    are removed at the end, also on failure."""
+    root = _fault_root()
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    try:
+        with torch.enable_grad():
+            launches = timed("11a quorum at full width", phase_fault_quorum,
+                             topo, name)
+            torch.cuda.empty_cache()
+            launches.update(timed("11b checkpoint rungs", phase_fault_ckpt,
+                                  topo, root, name))
+            launches.update(timed("11c lone pod lost", phase_fault_restart,
+                                  topo, root, name))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        log("time", f"phase 11: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def timed(label, fn, *args, **kw):
     t0 = time.perf_counter()
     out = fn(*args, **kw)
@@ -2638,7 +2867,7 @@ def main() -> int:
                 f"train {arch}", phase_train, resolve(arch), name)
             first_loss[arch] = losses[0]
             torch.cuda.empty_cache()
-    launches.update(timed("lane collectives, ZeRO and checkpoints",
+    launches.update(timed("lane collectives, ZeRO, checkpoints and faults",
                           phase_lanes, name, first_loss, served))
     log("time", f"total: {time.perf_counter() - t_start:.1f} s")
     by_path = {k: {a: n[k] for a, n in launches.items()}

@@ -16,9 +16,9 @@ Registration legend per collective:
                    bcast/reduce rings are rooted at lane 0, so they are
                    never auto-selected)
   grad_sync        the training collective: native / lane /
-                   lane_pipelined / lane_int8, each in place; lane_zero1
-                   and lane_zero3 return (this process's flat shard,
-                   spec) for the sharded optimizers
+                   lane_pipelined / lane_int8 / lane_quorum, each in
+                   place; lane_zero1 and lane_zero3 return (this
+                   process's flat shard, spec) for the sharded optimizers
   prefetch_allgather
                    the ZeRO-3 per-layer weight re-gather: the §5
                    pipelined AG(lane)→AG(node), or the monolithic
@@ -27,9 +27,9 @@ Registration legend per collective:
                    cache: a mask-to-root all-reduce (native) or the lane
                    bcast (lane), then the local splice
 
-The cells of later ROADMAP items (``lane_quorum`` and ``moe_route``:
-item 10) stay unregistered; resolving one raises
-``NotImplementedError`` naming its item (``registry.UNPORTED``).
+The cells of a later ROADMAP item (``moe_route``: item 10) stay
+unregistered; resolving one raises ``NotImplementedError`` naming its
+item (``registry.UNPORTED``).
 """
 from __future__ import annotations
 
@@ -288,6 +288,33 @@ def _gs_pipelined(comm, grads, *, num_buckets=0):
     return _unflatten_bucket(flat.div_(topo.p()), spec)
 
 
+@register_impl("grad_sync", "lane_quorum", auto_ok=False, feasible=_div_n)
+def _gs_quorum(comm, grads, *, num_buckets=0, contributing=None):
+    """Quorum-degraded lane sync: the lane hop becomes a masked mean.
+
+    The same bucket schedule as ``lane``, RS(node) -> AR(lane) ->
+    AG(node), in place on the flat f32 buffer, but the lane allreduce is
+    ``runtime.straggler``'s quorum stage: THIS pod's ``contributing`` bit
+    (0/1, from the host-side watchdog) zeroes its stripe and the divisor
+    is the live pod count instead of the lane size, so a masked pod's
+    gradient cannot reach the result: the step equals the same step with
+    that pod's rows skipped.  ``contributing=None`` is a full quorum,
+    bit-identical to ``lane`` on power-of-two pod counts.  Never
+    auto-selected: with a pod masked it is another estimator (fewer
+    samples)."""
+    from repro_torch.runtime.straggler import quorum_stage
+    topo = comm.topo
+    K, flat, spec = _grad_prep(comm, grads, topo.n(), num_buckets)
+    bucket_schedule(flat, K, (
+        _rs_node(topo),
+        quorum_stage(topo, 1.0 if contributing is None else contributing,
+                     device=flat.device),
+        _ag_node(topo)))
+    # the quorum stage already divided by the live lane count; only the
+    # node level's factor is left
+    return _unflatten_bucket(flat.div_(topo.n()), spec)
+
+
 @register_impl("grad_sync", "lane_int8", auto_ok=False)
 def _gs_int8(comm, grads, *, num_buckets=0):
     """Lossy (int8 lane hop): opt-in only, never auto-selected."""
@@ -320,10 +347,10 @@ def _gs_zero3(comm, grads, *, num_buckets=0):
     return zero3_param_shard(flat, topo, K).div_(topo.p()), spec
 
 
-# the replicated train step runs the exact and int8 syncs: params and
-# moments stay ordinary trees, identical on every rank; the ZeRO steps
-# shard the moments (zero1) or the parameters too (zero3)
-for _s in ("native", "lane", "lane_pipelined", "lane_int8"):
+# the replicated train step runs the exact, int8 and quorum syncs: params
+# and moments stay ordinary trees, identical on every rank; the ZeRO
+# steps shard the moments (zero1) or the parameters too (zero3)
+for _s in ("native", "lane", "lane_pipelined", "lane_int8", "lane_quorum"):
     register_param_layout(_s, "replicated")
 register_param_layout("lane_zero1", "zero1")
 register_param_layout("lane_zero3", "zero3")

@@ -38,7 +38,6 @@ _ITEM = "ROADMAP.md, Queue 1, item"
 #: (collective, strategy) -> the ROADMAP item that ports it; "*" stands
 #: for every strategy of the collective.
 UNPORTED = {
-    ("grad_sync", "lane_quorum"): f"{_ITEM} 10 (runtime/)",
     ("moe_route", "*"): f"{_ITEM} 10 (TP/EP)",
 }
 

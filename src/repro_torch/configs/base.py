@@ -141,12 +141,13 @@ class RunConfig:
     """One training run: the fields of ``repro``'s ``RunConfig`` that the
     port honours, validated at construction as ``repro`` validates them.
 
-    ``remat``: ``"none"`` | ``"full"`` | ``"dots"`` (the last raises in the
-    forward: not ported).  ``gradsync``: the gradient sync and parameter
-    layout, ``"native"``, ``"lane"``, ``"lane_pipelined"`` or
-    ``"lane_int8"`` (the replicated step), ``"lane_zero1"`` or
-    ``"lane_zero3"`` (the ZeRO steps); ``repro``'s other strategies
-    raise, naming their ROADMAP.md items.  ``gradsync_buckets``: the
+    ``remat``: ``"none"`` | ``"full"`` | ``"dots"`` (save the products
+    with no batch dimensions, recompute the rest).  ``gradsync``: the
+    gradient sync and parameter layout, ``"native"``, ``"lane"``,
+    ``"lane_pipelined"`` or ``"lane_int8"`` (the replicated step),
+    ``"lane_quorum"`` (the replicated step with a quorum mask),
+    ``"lane_zero1"`` or ``"lane_zero3"`` (the ZeRO steps); ``"auto"``
+    raises, naming its ROADMAP.md item.  ``gradsync_buckets``: the
     bucket count K of the lane strategies (0 = cost-model auto).
     ``fsdp_prefetch``: ``lane_zero3``'s per-layer gather blocks B (0 =
     cost-model auto, > 0 that many, -1 = the blocking gather, no

@@ -18,7 +18,9 @@ level ``data``.  Each ``model`` index gets its own copy of the groups.
   * :func:`mesh_shape` is ``make_mesh_auto``'s rule, with its messages.
   * :func:`new_lane_topology` makes every node group and every lane group
     on every process, in one order (``dist.new_subgroups_by_enumeration``;
-    NCCL hangs otherwise) and returns this process's topology.
+    NCCL hangs otherwise) and returns this process's topology; with
+    ``lanes`` it makes the survivors' topology after an elastic shrink
+    (``runtime.elastic``), on the survivors alone.
   * :func:`spawn` runs a function on a world of local processes (gloo on
     the CPU), for tests and the CPU rehearsal of multi-rank training.
 """
@@ -35,8 +37,9 @@ import torch.distributed as dist
 from repro_torch._device import resolve_device
 from repro_torch.core.lane import LaneTopology
 
-__all__ = ["init_world", "world_size", "mesh_shape", "resolve_pods",
-           "new_lane_topology", "make_lane_topology", "spawn"]
+__all__ = ["init_world", "world_size", "mesh_shape", "mesh_axes",
+           "resolve_pods", "new_lane_topology", "make_lane_topology",
+           "spawn"]
 
 _TIMEOUT = datetime.timedelta(seconds=300)
 
@@ -115,37 +118,76 @@ def mesh_shape(n: int, batch: int = 1 << 30, pods: int = 1):
     return pods, d, per // d
 
 
-def new_lane_topology(n: int, N: int, *, replicas: int = 1) -> LaneTopology:
+def new_lane_topology(n: int, N: int, *, replicas: int = 1,
+                      lanes=None) -> "LaneTopology | None":
     """This process's topology in a world of ``n·N·replicas`` processes,
     world rank ``(lane_rank·n + node_rank)·replicas + replica``.  Every
     process must call it, with the same arguments: it creates every node
     group, then every lane group, then (replicas > 1) every whole
-    communicator, each process taking part in all of them."""
+    communicator, each process taking part in all of them.
+
+    ``lanes``: the survivor case, a topology over a subset of the world.
+    Lane rank j is then the original outer slice ``lanes[j]`` (of any
+    larger world), world rank ``(lanes[j]·n + node_rank)·replicas +
+    replica``, so survivors keep their world ranks; returns None on a
+    process outside it.  Only the survivors take part in the groups'
+    creation (``use_local_synchronization``), so processes that left at
+    an earlier restart need not call it; every survivor creates the same
+    groups in the same order."""
     p = n * N
-    if world_size() != p * replicas:
-        raise ValueError(f"world of {world_size()} processes, topology "
-                         f"{n}x{N}x{replicas} needs {p * replicas}")
-    w = lambda j, i, k: (j * n + i) * replicas + k
+    if lanes is None:
+        if world_size() != p * replicas:
+            raise ValueError(f"world of {world_size()} processes, topology "
+                             f"{n}x{N}x{replicas} needs {p * replicas}")
+        lanes = range(N)
+        local = False
+    else:
+        lanes = list(lanes)
+        if len(lanes) != N or \
+                (max(lanes) + 1) * n * replicas > world_size():
+            raise ValueError(f"lanes {lanes} of {n}x{N}x{replicas} do not "
+                             f"fit a world of {world_size()} processes")
+        local = True
+    w = lambda j, i, k: (lanes[j] * n + i) * replicas + k
     node_sets = [[w(j, i, k) for i in range(n)]
                  for j in range(N) for k in range(replicas)]
     lane_sets = [[w(j, i, k) for j in range(N)]
                  for i in range(n) for k in range(replicas)]
-    node_group, _ = dist.new_subgroups_by_enumeration(node_sets)
-    lane_group, _ = dist.new_subgroups_by_enumeration(lane_sets)
+    whole_sets = [[w(j, i, r) for j in range(N) for i in range(n)]
+                  for r in range(replicas)]
     me = dist.get_rank()
-    g, k = divmod(me, replicas)
-    ranks = [w(0, q, k) for q in range(p)]
-    if replicas > 1:
-        group, _ = dist.new_subgroups_by_enumeration(
-            [[w(0, q, r) for q in range(p)] for r in range(replicas)])
+    if local:
+        mine = [s for s in node_sets if me in s]
+        if not mine:
+            return None
+        node_group, lane_group, group = (
+            dist.new_group(next(s for s in sets if me in s),
+                           use_local_synchronization=True)
+            for sets in (node_sets, lane_sets, whole_sets))
     else:
-        group = dist.group.WORLD
+        node_group, _ = dist.new_subgroups_by_enumeration(node_sets)
+        lane_group, _ = dist.new_subgroups_by_enumeration(lane_sets)
+        if replicas > 1:
+            group, _ = dist.new_subgroups_by_enumeration(whole_sets)
+        else:
+            group = dist.group.WORLD
+    k = me % replicas
+    g = next(q for q, r in enumerate(whole_sets[k]) if r == me)
     j, i = divmod(g, n)
     return LaneTopology(
         n, N, lane_rank=j, node_rank=i, node_group=node_group,
         lane_group=lane_group, group=group,
         node_ranks=[w(j, q, k) for q in range(n)],
-        lane_ranks=[w(q, i, k) for q in range(N)], ranks=ranks)
+        lane_ranks=[w(q, i, k) for q in range(N)], ranks=whole_sets[k])
+
+
+def mesh_axes(P: int, d: int, m: int):
+    """``(axis names, shape)`` of ``repro``'s mesh for ``mesh_shape``'s
+    ``(P, d, m)``: ``("pod", "data", "model")`` with pods, else
+    ``("data", "model")``; the world rank is the mesh's flat index."""
+    if P > 1:
+        return ("pod", "data", "model"), (P, d, m)
+    return ("data", "model"), (d, m)
 
 
 def make_lane_topology(batch: int = 1 << 30, pods: int = 1):

@@ -159,6 +159,8 @@ def build_train_step(run: RunConfig, opt: AdamWConfig,
         return _build_zero3(run, opt, comm, single)
     if kind == "zero1":
         return _build_zero1(run, opt, comm)
+    if run.gradsync == "lane_quorum":
+        return _build_quorum(run, opt, comm)
     return _build_replicated(run, opt, comm, single)
 
 
@@ -183,6 +185,62 @@ def _build_replicated(run, opt, comm, single):
         return loss, params, opt_state
     step.full_params = lambda params: params
     return step
+
+
+def _build_quorum(run, opt, comm):
+    """The quorum-degraded replicated step, the DEGRADED rung of the
+    recovery ladder: ``step(params, opt_state, tokens, labels, extra=None,
+    quorum_mask=None)``.
+
+    The replicated step with a trailing ``quorum_mask``: the watchdog's
+    0/1 float32 vector over the lane (pod) level, on the host, of which
+    each process takes its pod's bit ``mask[topo.lane_rank()]``.  The
+    gradients go through the ``lane_quorum`` sync (masked pods contribute
+    zero, the mean rescales by the live count) and the loss degrades the
+    same way: the node mean, then ``quorum_mean`` over the lane.  A masked
+    process still runs its forward and backward.  With every pod masked
+    the divisor is 1, the loss and the gradient exactly 0, and AdamW still
+    moves the parameters by its moments, as in ``repro``.  With no mask
+    (or all ones) the step is the full quorum, bit-identical to ``lane``
+    on power-of-two pod counts.  On one process (no comm) the lane is
+    this process alone.  ``step.needs_quorum_mask`` tells the training
+    loop to pass the mask."""
+    from repro_torch.runtime.straggler import quorum_mean
+    vg = _microbatched(_value_and_grad(_make_loss(run)), run.microbatch,
+                       _accum_dtype(run))
+
+    def step(params, opt_state, tokens, labels, extra=None,
+             quorum_mask=None):
+        loss, grads = vg(params, tokens, labels, extra)
+        q = 0 if comm is None else comm.topo.lane_rank()
+        c = 1.0 if quorum_mask is None else float(quorum_mask[q])
+        with record_function("train_step/grad_sync"):
+            if comm is None:
+                # a lane of one: sum(x·c) / max(c, 1)
+                den = max(c, 1.0)
+                loss = loss * c / den
+                for g in _tree.leaves(grads):
+                    g.mul_(c).div_(den)
+            else:
+                topo = comm.topo
+                if topo.n() > 1:
+                    loss = _node_mean(topo, loss)
+                loss = quorum_mean(loss, topo, c)
+                grads = comm.grad_sync(grads, strategy="lane_quorum",
+                                       contributing=c)
+        with record_function("train_step/optimizer"):
+            params, opt_state = adamw_update(opt, grads, opt_state, params)
+        return loss, params, opt_state
+    step.full_params = lambda params: params
+    step.needs_quorum_mask = True
+    return step
+
+
+def _node_mean(topo, loss):
+    """The mean of ``loss`` over the node group."""
+    t = loss.reshape(1).clone()
+    dist.all_reduce(t, group=topo.node_group)
+    return t[0] / topo.n()
 
 
 # ---------------------------------------------------------------------------
@@ -578,7 +636,7 @@ def init_lane_train_state(run: RunConfig, params, comm=None, *,
 # every layer stack one (L, ...) leaf per key path, ZeRO masters and
 # moments in their host-global shapes (zero1 (n·K·s,), zero3 (L, B, p,
 # s)), the step counts int32 scalars.  state_to_host assembles that tree
-# on world rank 0 (the stripes of every rank gathered to it over the
+# on the topology's root (the stripes of every rank gathered to it over the
 # communicator); host_to_state hands each rank its part of such a tree.
 # The cross-layout path lifts a checkpoint's canonical leaves to the
 # replicated form (state_to_replicated) and lays them out again for the
@@ -676,10 +734,12 @@ def _master(t, topo, shape3):
 def state_to_host(run: RunConfig, layout, params, opt_state, comm=None):
     """The checkpoint tree of a state in ``layout``: ``(params,
     opt_state)`` in ``repro``'s layout and host-global shapes, as owned
-    CPU tensors (ints for the step counts), on world rank 0, and None on
-    every other process (each takes part in the gathers: every rank must
-    call it)."""
-    lead = comm is None or dist.get_rank() == 0
+    CPU tensors (ints for the step counts), on the root of the topology
+    (global rank 0, world rank ``comm.topo.rank_of(0)``, which after an
+    elastic shrink need not be world rank 0), and None on every other
+    process of it (each takes part in the gathers: every rank must call
+    it)."""
+    lead = comm is None or dist.get_rank() == comm.topo.rank_of(0)
     if layout.kind == "replicated":
         return (_stacked(params), _stacked(opt_state)) if lead else None
     topo = comm.topo

@@ -29,7 +29,8 @@ blocking gather; ``--fsdp-regather`` gathers again in the backward):
 Checkpoints, as ``repro``'s driver writes them (``--ckpt DIR``): the
 state every ``--ckpt-every`` steps and at the end, on an async writer
 (``checkpoint.AsyncCheckpointer``; the loop blocks only for the copy to
-the host), assembled on world rank 0 in ``repro``'s files.  A run with
+the host), assembled on the lead rank (global rank 0 of the topology) in
+``repro``'s files.  A run with
 ``--ckpt`` resumes from the newest checkpoint there that verifies, in
 its own layout whatever layout and number of ranks wrote it
 (``launch.steps.restore_lane_train_state``); resuming a finished run does
@@ -44,20 +45,52 @@ emergency checkpoint, and the old handler comes back in ``finally``:
       --smoke --steps 6 --batch 4 --seq 32 --ckpt runs/ck --ckpt-every 2 \\
       --device cpu
 
+The recovery ladder, HEALTHY -> DEGRADED -> RESTART (``runtime``):
+
+  * ``--fault-plan`` injects a deterministic ``runtime.FaultPlan``
+    (pod_slow / pod_lost / ckpt_io / corrupt_leaf; ``seed:<n>`` draws a
+    seeded random plan), the same on every rank;
+  * a ``Watchdog`` folds the plan's per-pod heartbeats into the 0/1
+    contributing mask; under ``--gradsync lane_quorum`` the step takes
+    it, and DEGRADED steps proceed with the quorum-rescaled gradient (a
+    masked pod contributes zero; its (seed, step)-keyed rows are logged,
+    replayable);
+  * a ``HealthMonitor`` bounds the staleness (``--quorum-staleness``
+    K): a pod masked for more than K consecutive steps, or any masked
+    pod under a strategy with no quorum path, escalates to RESTART: the
+    emergency checkpoint, then ``plan_elastic_mesh`` re-plans around the
+    lost pod's ranks and the run resumes in the same processes on the
+    survivors' topology (``launch.mesh.new_lane_topology(..., lanes=)``)
+    from the newest verified checkpoint; the lost ranks leave.
+    ``--max-restarts`` bounds the attempts.  The in-process restart
+    gives the same files, byte for byte, as a fresh launch with
+    ``--lose-chips`` (world ranks, ``repro``'s flat device indices) from
+    the same emergency checkpoint;
+  * ckpt_io faults fail the save's first attempts (its retry absorbs
+    them); a corrupt_leaf fault flips a byte after the commit, which the
+    restore's crc32 check refuses, falling back to the step before:
+
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch llama3.2-3b --smoke --steps 8 --gradsync lane_quorum --pods 2 \\
+      --fault-plan "pod_lost@2:pod=1" --ckpt runs/ck --ckpt-every 100 \\
+      --device cpu
+
 The rest of ``repro``'s training loop is not ported yet.  Each of its flags
 is accepted and raises, naming its ROADMAP.md item, when it is set away
-from its default: tensor and expert parallelism, fault injection,
-elastic restarts and tuning (item 10).  Nothing is ignored silently.
+from its default: tensor and expert parallelism and tuning (item 10).
+Nothing is ignored silently.
 """
 from __future__ import annotations
 
 import argparse
 import hashlib
+import math
 import os
 import signal
 import sys
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -74,6 +107,9 @@ from repro_torch.launch.steps import (build_train_step,
                                      state_to_host)
 from repro_torch.models import init_model
 from repro_torch.optim import AdamWConfig
+from repro_torch.runtime import (DEGRADED, RESTART, FaultPlan, HealthMonitor,
+                                 Watchdog, corrupt_leaf_file,
+                                 plan_elastic_mesh)
 
 # repro's flags that the port does not honour yet: (default, ROADMAP item)
 _ITEM = "ROADMAP.md, Queue 1, item"
@@ -81,10 +117,6 @@ UNPORTED = {
     "model_parallel": (1, f"{_ITEM} 10 (TP/EP)"),
     "expert_parallel": (False, f"{_ITEM} 10 (TP/EP)"),
     "ep_blocks": (1, f"{_ITEM} 10 (TP/EP)"),
-    "lose_chips": ("", f"{_ITEM} 10 (runtime/)"),
-    "fault_plan": ("", f"{_ITEM} 10 (runtime/)"),
-    "quorum_staleness": (2, f"{_ITEM} 10 (runtime/)"),
-    "max_restarts": (2, f"{_ITEM} 10 (runtime/)"),
     "tune": (False, f"{_ITEM} 10 (tuning/)"),
     "tuning_cache": ("", f"{_ITEM} 10 (tuning/)"),
 }
@@ -106,7 +138,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--remat", default="none",
                     help="none | full (recompute each layer in the "
-                         "backward); dots is not ported")
+                         "backward) | dots (keep the matmul outputs, "
+                         "recompute the rest)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--microbatch", type=int, default=0,
                     help="gradient-accumulation microbatches per step "
@@ -116,9 +149,9 @@ def _parser() -> argparse.ArgumentParser:
                     help="microbatch gradient accumulator precision")
     ap.add_argument("--gradsync", default="native",
                     help="gradient sync across ranks: native, lane, "
-                         "lane_pipelined, lane_int8, lane_zero1 or "
-                         "lane_zero3 (repro's other strategies raise, "
-                         "naming their items)")
+                         "lane_pipelined, lane_int8, lane_quorum (the "
+                         "quorum-degraded step), lane_zero1 or "
+                         "lane_zero3 (auto raises, naming its item)")
     ap.add_argument("--gradsync-buckets", type=int, default=0,
                     help="bucket count K; 0 = cost-model auto")
     ap.add_argument("--fsdp-prefetch", type=int, default=0,
@@ -132,6 +165,22 @@ def _parser() -> argparse.ArgumentParser:
                          "gets 2 when the ranks allow, else 1)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--lose-chips", default="",
+                    help="comma-separated world ranks (repro's flat "
+                         "device indices) to treat as lost: train on the "
+                         "topology that survives them")
+    ap.add_argument("--fault-plan", default="",
+                    help="deterministic fault injection: "
+                         "'kind@step[-until][:k=v,...];...' (kinds "
+                         "pod_slow/pod_lost/ckpt_io/corrupt_leaf, see "
+                         "runtime.faults) or 'seed:<n>' for a seeded "
+                         "random plan")
+    ap.add_argument("--quorum-staleness", type=int, default=2,
+                    help="K: consecutive steps a pod may be masked out "
+                         "of the quorum before DEGRADED escalates to "
+                         "RESTART")
+    ap.add_argument("--max-restarts", type=int, default=2,
+                    help="in-process elastic restarts before giving up")
     for name, (default, _) in UNPORTED.items():
         flag = "--" + name.replace("_", "-")
         if isinstance(default, bool):
@@ -162,14 +211,28 @@ def run(argv=None, *, params=None, topo=None, stats=None):
     stays in the step's layout.  ``params``: the initial weights (the
     port's tree, e.g. from ``bridge.params_from_repro``); default
     ``init_model`` from ``--seed``.  ``topo``: a topology of the started
-    world to train on with both of its levels as batch axes, where
+    world to train on with both of its levels as batch axes (``pod`` the
+    lane level, ``data`` the node level), where
     ``launch.mesh.make_lane_topology`` would give one (e.g. the 1 x 1
     topology of one card, on which ``lane_zero3`` then runs); default
-    ``make_lane_topology``.  ``stats``: a dict that receives, on world
-    rank 0, ``"saves"`` (per checkpoint: step, the loop's blocking
-    seconds, the writer's seconds, bytes written) and ``"restore_s"``.
-    The log lines and the closing loss check are ``repro``'s, printed by
-    world rank 0.  Resuming at or past ``--steps`` returns no losses."""
+    ``make_lane_topology``.  ``stats``: a dict that receives, on the lead
+    rank, ``"saves"`` (per checkpoint: step, the loop's blocking seconds,
+    the writer's seconds, bytes written) and ``"restore_s"``, and on
+    every rank ``"events"`` (the health ladder's transitions, every
+    attempt's) and ``"restarts"``.  The log lines and the closing loss
+    check are ``repro``'s, printed by the lead rank (global rank 0 of the
+    current topology).  Resuming at or past ``--steps`` returns no
+    losses.
+
+    The recovery ladder: each attempt trains on the topology that
+    survives the lost ranks (``--lose-chips``, then the pods each RESTART
+    condemns); a RESTART commits the emergency checkpoint of the last
+    completed step, and the next attempt re-plans
+    (``runtime.elastic.plan_elastic_mesh``, whose ValueError when no pod
+    survives propagates) and resumes from the newest verified
+    checkpoint.  A rank outside the survivors returns at once with the
+    losses it logged and ``None`` for the state.  Past
+    ``--max-restarts`` it prints ``repro``'s line and raises."""
     args = _parser().parse_args(argv)
     _refuse_unported(args)
     cfg = resolve(args.arch, smoke=args.smoke)
@@ -179,75 +242,195 @@ def run(argv=None, *, params=None, topo=None, stats=None):
                         fsdp_regather=args.fsdp_regather,
                         microbatch=args.microbatch,
                         accum_dtype=args.accum_dtype)
-    owns_world = False
-    if _multi_rank():
-        owns_world = not dist.is_initialized()
+    multi = _multi_rank()
+    owns_world = multi and not dist.is_initialized()
+    if multi:
         dev = mesh.init_world(args.device)
+        world = dist.get_world_size()
         if topo is None:
             pods = mesh.resolve_pods(args.pods, args.gradsync)
-            topo, single = mesh.make_lane_topology(args.batch, pods)
+            names, shape = mesh.mesh_axes(
+                *mesh.mesh_shape(world, args.batch, pods))
         else:
-            single = False
-        comm = LaneComm(topo, CommConfig.from_run(run_cfg))
-        flags = _flag_group()
-        rows = args.batch // topo.p()
-        row0 = topo.global_rank() * rows
-        lead = dist.get_rank() == 0
+            names = ("pod", "data", "model")
+            shape = (topo.N(), topo.n(), world // topo.p())
     else:                                    # repro's rules, one device
         mesh.mesh_shape(1, args.batch,
                         mesh.resolve_pods(args.pods, args.gradsync, 1))
         dev = resolve_device(args.device)
-        comm, single, row0, rows, lead = None, True, 0, args.batch, True
-        flags = None
-    opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps // 5),
-                          total_steps=args.steps)
+        names, shape = ("data", "model"), (1, 1)
+    lead0 = not multi or dist.get_rank() == 0
+    if args.fault_plan.startswith("seed:"):
+        plan = FaultPlan.generate(int(args.fault_plan[len("seed:"):]),
+                                  args.steps, shape[_outer_axis(names)])
+        if lead0:
+            print(f"fault plan (seeded): {plan.faults}", flush=True)
+    else:
+        plan = FaultPlan.parse(args.fault_plan)
+    lost = {int(x) for x in args.lose_chips.split(",") if x != ""}
     stats = {} if stats is None else stats
-    losses, logged = [], []
+    stats.setdefault("events", [])
+    stats["restarts"] = 0
+    losses = []
     # SIGTERM (preemption): an emergency checkpoint at the next step
     # boundary
     terminate = {"now": False}
     old = signal.signal(signal.SIGTERM,
                         lambda *_: terminate.__setitem__("now", True))
-    ckpt, start = None, 0
     try:
-        # the step first (it refuses lane_zero3 on one batch axis), then
-        # the state in its layout
-        step = build_train_step(run_cfg, opt_cfg, comm, single=single)
-        if params is None:
-            params = init_model(cfg, seed=args.seed, device=dev)
-        params, opt_state, layout = init_lane_train_state(
-            run_cfg, params, comm, single=single, device=dev)
-        if args.ckpt:
+        for attempt in range(args.max_restarts + 1):
+            single, ranks = not multi, [0]
+            if multi and lost:
+                em = plan_elastic_mesh(names, shape, sorted(lost))
+                topo, single = em.make()
+                if topo is None:              # this rank is lost
+                    return [float(x) for x in losses], None, None
+                per = math.prod(em.shape[1:])
+                ranks = [r for r in range(world) if r // per in em.lanes]
+                if dist.get_rank() == ranks[0]:
+                    print(f"elastic mesh: {dict(zip(names, em.shape))} "
+                          f"(lost {em.lost})", flush=True)
+            elif multi:
+                if topo is None:
+                    topo, single = mesh.make_lane_topology(args.batch, pods)
+                ranks = list(range(world))
+            elif lost:                        # every loss empties (1, 1)
+                plan_elastic_mesh(names, shape, sorted(lost))
+            flags = _flag_group(ranks) if multi else None
+            lead = not multi or dist.get_rank() == ranks[0]
+            more, out = _attempt(args, cfg, run_cfg, plan,
+                                 topo if multi else None, single, dev,
+                                 params, stats, losses, flags, terminate,
+                                 lead=lead)
+            if more is None:
+                params, opt_state = out
+                break
+            params = None      # the next attempt restores or re-inits
+            lost |= set(_restart_flat_indices(names, shape, lost, more))
+            stats["restarts"] += 1
             if lead:
-                ckpt = AsyncCheckpointer(args.ckpt, layout=layout)
-            if latest_step(args.ckpt) is not None:
-                t0 = time.perf_counter()
-                del params, opt_state
-                (params, opt_state), start = restore_lane_train_state(
-                    args.ckpt, run_cfg, layout, comm, device=dev)
-                stats["restore_s"] = time.perf_counter() - t0
-                if lead:
-                    print(f"resumed from step {start} "
-                          f"(layout {layout.kind})", flush=True)
-        loader = make_loader(cfg, args.seq, args.batch, seed=args.seed)
-        done = saved = start    # the last completed / committed step
-        in_step = False         # the in-place update is under way
-        unwinding = False
+                print(f"restart {attempt + 1}/{args.max_restarts}: "
+                      f"re-planning around lost devices {sorted(lost)}",
+                      flush=True)
+        else:
+            print(f"giving up after {args.max_restarts} restarts",
+                  file=sys.stderr, flush=True)
+            raise RuntimeError(
+                f"giving up after {args.max_restarts} restarts")
+    finally:
+        signal.signal(signal.SIGTERM, old)
+        # a group made after an elastic shrink is named by its ranks and
+        # the number of groups this process holds; destroying one would
+        # let a later group of the same ranks take its name (and its
+        # stale rendezvous), so the flag groups stay until the world ends
+        if owns_world:
+            dist.destroy_process_group()
+    return [float(x) for x in losses], params, opt_state
 
-        def save(at):
-            t1 = time.perf_counter()
-            tree = state_to_host(run_cfg, layout, params, opt_state, comm)
-            if ckpt is not None:
-                ckpt.save(at, tree, copy=False, since=t1)
 
-        t0 = time.time()
+def _attempt(args, cfg, run_cfg, plan, topo, single, dev, params, stats,
+             losses, flags, terminate, *, lead):
+    """One attempt of the run on ``topo`` (None: one process), appending
+    each step's loss to ``losses``; ``lead``: this rank logs and writes
+    the checkpoints (the lowest world rank of the job, the root of its
+    topology).  Returns ``(None, (params, opt_state))`` when the run
+    completed or stopped (SIGTERM), or ``(the current lane ranks the
+    health ladder condemned, None)`` on RESTART, after the emergency
+    checkpoint committed."""
+    if topo is not None:
+        comm = LaneComm(topo, CommConfig.from_run(run_cfg))
+        if args.batch % topo.p():
+            raise ValueError(f"global batch {args.batch} not divisible by "
+                             f"the {topo.p()} processes of the batch axes")
+        rows = args.batch // topo.p()
+        row0 = topo.global_rank() * rows
+        num_pods = topo.N()
+    else:
+        comm, row0, rows, num_pods = None, 0, args.batch, 1
+    opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps // 5),
+                          total_steps=args.steps)
+    logged = []
+    ckpt, start = None, 0
+    # the step first (it refuses lane_zero3 on one batch axis), then the
+    # state in its layout
+    step = build_train_step(run_cfg, opt_cfg, comm, single=single)
+    if params is None:
+        params = init_model(cfg, seed=args.seed, device=dev)
+    params, opt_state, layout = init_lane_train_state(
+        run_cfg, params, comm, single=single, device=dev)
+    if args.ckpt:
+        if lead:
+            ckpt = AsyncCheckpointer(args.ckpt, layout=layout)
+        if latest_step(args.ckpt) is not None:
+            t0 = time.perf_counter()
+            del params, opt_state
+            (params, opt_state), start = restore_lane_train_state(
+                args.ckpt, run_cfg, layout, comm, device=dev)
+            stats["restore_s"] = time.perf_counter() - t0
+            if lead:
+                print(f"resumed from step {start} "
+                      f"(layout {layout.kind})", flush=True)
+    # the fault/quorum machinery: the watchdog folds the plan's heartbeats
+    # into the 0/1 contributing mask, the health monitor runs the ladder
+    # on it; every rank derives the same mask and the same transitions.
+    # Strategies without a quorum sync cannot form a step minus a pod, so
+    # any masked pod escalates straight to RESTART (can_degrade=False).
+    needs_mask = bool(getattr(step, "needs_quorum_mask", False))
+    watch = Watchdog(num_pods) if (plan or needs_mask) else None
+    health = HealthMonitor(
+        num_pods, staleness_limit=args.quorum_staleness,
+        can_degrade=needs_mask,
+        log=(lambda m: print(m, flush=True)) if lead else None) \
+        if watch else None
+    loader = make_loader(cfg, args.seq, args.batch, seed=args.seed)
+    done = saved = start    # the last completed / committed step
+    in_step = False         # the in-place update is under way
+    unwinding = False
+    restart = None          # the condemned pods, on RESTART
+
+    def save(at):
+        t1 = time.perf_counter()
+        tree = state_to_host(run_cfg, layout, params, opt_state, comm)
+        if ckpt is not None:
+            ckpt.save(at, tree, attempt_hook=plan.ckpt_attempt_hook(at),
+                      copy=False, since=t1)
+            _post_commit_faults(ckpt, plan, args.ckpt, at)
+
+    t0 = time.time()
+    try:
         try:
             for s in range(start, args.steps):
+                mask = None
+                if watch is not None:
+                    for pod in set(range(num_pods)) \
+                            - set(plan.pods_down(s, num_pods)):
+                        watch.heartbeat(pod, s)
+                    mask = watch.mask(s)
+                    state = health.observe(s, mask)
+                    if state == RESTART:
+                        restart = health.restart_pods()
+                        break
+                    if state == DEGRADED and lead:
+                        r = args.batch // num_pods
+                        for pod in watch.stale(s):
+                            # the dropped rows are a pure function of
+                            # (seed, step, row range): ShardedLoader
+                            # .batch_slice regenerates exactly them
+                            print(f"degraded step {s}: pod {pod} masked; "
+                                  f"rows [{pod * r}, {(pod + 1) * r}) "
+                                  f"dropped, replayable from (seed="
+                                  f"{args.seed}, step={s})", flush=True)
                 toks, labels = loader.batch_slice(s, row0, rows)
+                call = [params, opt_state, torch.as_tensor(toks, device=dev),
+                        torch.as_tensor(labels, device=dev)]
                 in_step = True
-                loss, params, opt_state = step(
-                    params, opt_state, torch.as_tensor(toks, device=dev),
-                    torch.as_tensor(labels, device=dev))
+                if needs_mask:
+                    loss, params, opt_state = step(
+                        *call, quorum_mask=torch.from_numpy(
+                            mask if mask is not None
+                            else np.ones((num_pods,), np.float32)))
+                else:
+                    loss, params, opt_state = step(*call)
                 in_step = False
                 done = s + 1      # only once the step returned
                 losses.append(loss)
@@ -285,9 +468,10 @@ def run(argv=None, *, params=None, topo=None, stats=None):
                               file=sys.stderr, flush=True)
                     if ckpt is not None:
                         ckpt.wait()
-                        stats["saves"] = ckpt.records
-                    if comm is not None and not unwinding:
-                        dist.barrier()
+                        stats["saves"] = stats.get("saves", []) \
+                            + ckpt.records
+                    if flags is not None and not unwinding:
+                        dist.barrier(group=flags)
                 except BaseException as e:  # noqa: BLE001
                     # the writer's failure is reported; it is raised only
                     # where it would not mask the exception under way
@@ -295,13 +479,18 @@ def run(argv=None, *, params=None, topo=None, stats=None):
                           f"{e!r}", file=sys.stderr, flush=True)
                     if not unwinding:
                         raise
-        params = step.full_params(params)
     finally:
-        signal.signal(signal.SIGTERM, old)
-        if owns_world:
-            dist.destroy_process_group()
-        elif flags not in (None, dist.group.WORLD):
-            dist.destroy_process_group(flags)
+        if health is not None:
+            stats["events"].extend(health.events)
+    if restart is not None:
+        if lead:
+            print(f"RESTART at step {done}: emergency checkpoint committed, "
+                  f"shrinking around pods {restart}", flush=True)
+            if not args.ckpt:
+                print("WARNING: no --ckpt; the restarted attempt re-inits "
+                      "from scratch", file=sys.stderr, flush=True)
+        return restart, None
+    params = step.full_params(params)
     if start >= args.steps:
         if lead:
             print(f"nothing to do: resumed at step {start} >= --steps "
@@ -313,20 +502,68 @@ def run(argv=None, *, params=None, topo=None, stats=None):
               f"{logged[-1]:.3f})")
     elif lead and logged:
         print(f"loss {logged[0]:.4f} → {logged[-1]:.4f}  OK")
-    return [float(x) for x in losses], params, opt_state
+    return None, (params, opt_state)
 
 
-def _flag_group():
-    """The group the SIGTERM flag is or'ed over (a SIGTERM reaches each
-    rank on its own; all of them must stop at the same step boundary):
-    None in a world of one rank, which needs no reduction; else the world
-    where it is gloo, or a gloo group of the world, so that the check
-    runs on the hosts and never waits for the card."""
-    if dist.get_world_size() == 1:
+def _outer_axis(names) -> int:
+    """Index of the outermost batch axis (the lane level): the axis
+    ``plan_elastic_mesh`` shrinks and the watchdog's quorum is over."""
+    for a in ("pod", "data"):
+        if a in names:
+            return names.index(a)
+    raise ValueError(f"no batch axis in {names}")
+
+
+def _restart_flat_indices(names, shape, lost, pod_ranks) -> list:
+    """The CURRENT topology's lane ranks the health ladder condemned, as
+    the original mesh's flat indices (world ranks), as ``repro``'s
+    ``_restart_flat_indices``.  The current topology is the original
+    minus the outer slices that hold ``lost``; the surviving outer
+    coordinates, in order, are its lane ranks.  Re-planning from the
+    original shape and ``lost`` plus these is the ``--lose-chips`` path,
+    so an in-process restart equals a fresh launch that lost the same
+    pods."""
+    outer = _outer_axis(names)
+    dropped = {np.unravel_index(i, shape)[outer] for i in lost}
+    survivors = [c for c in range(shape[outer]) if c not in dropped]
+    out = []
+    for q in pod_ranks:
+        coord = survivors[q]
+        out.extend(i for i in range(math.prod(shape))
+                   if np.unravel_index(i, shape)[outer] == coord)
+    return sorted(out)
+
+
+def _post_commit_faults(ckpt, plan: FaultPlan, ckpt_dir: str,
+                        step: int) -> None:
+    """Apply the plan's corrupt_leaf fault of ``step``, if any, AFTER the
+    async commit lands (so the crc32 check, not the atomic rename, is
+    what must catch it)."""
+    leaf = plan.corrupt_at(step)
+    if leaf is not None:
+        ckpt.wait()
+        p = corrupt_leaf_file(ckpt_dir, step, leaf)
+        print(f"fault: corrupted {p} after commit "
+              f"(restore must fall back via crc32)", flush=True)
+
+
+def _flag_group(ranks):
+    """The group the SIGTERM flag is or'ed over, and the barrier after a
+    checkpoint (a SIGTERM reaches each rank on its own; all of them must
+    stop at the same step boundary): None for a job of one rank, which
+    needs no reduction; else a gloo group of the job's ``ranks`` (the
+    world itself where it is gloo and whole), so that the check runs on
+    the hosts and never waits for the card.  After an elastic shrink the
+    survivors alone create it."""
+    ranks = list(ranks)
+    if len(ranks) == 1:
         return None
-    if dist.get_backend() == "gloo":
-        return dist.group.WORLD
-    return dist.new_group(backend="gloo")
+    if len(ranks) == dist.get_world_size():
+        if dist.get_backend() == "gloo":
+            return dist.group.WORLD
+        return dist.new_group(backend="gloo")
+    return dist.new_group(ranks, backend="gloo",
+                          use_local_synchronization=True)
 
 
 def _any_rank(flag: bool, group) -> bool:
@@ -355,9 +592,10 @@ def params_digest(params) -> str:
 
 def rank_worker(argv):
     """One rank of a ``mesh.spawn`` world: train with ``argv`` and return
-    (losses, params_digest)."""
+    (losses, params_digest; None on a rank an elastic restart left
+    out)."""
     losses, params, _ = run(argv)
-    return losses, params_digest(params)
+    return losses, None if params is None else params_digest(params)
 
 
 if __name__ == "__main__":

@@ -26,7 +26,9 @@ Audio serving also carries every decoder layer's cross K/V of the encoder
 output (``ServeState.enc_kv``), computed once at prefill.  Training goes
 through ``loss_fn`` over the no-cache forward, with ``remat="full"``
 recomputing each layer in the backward (``torch.utils.checkpoint``) where
-``repro`` wraps its scan body in ``jax.checkpoint``.
+``repro`` wraps its scan body in ``jax.checkpoint``, and ``"dots"``
+keeping its matmul outputs (a selective checkpoint policy) as
+``repro``'s ``checkpoint_dots_with_no_batch_dims`` does.
 
 One departure in bf16: ``repro`` adds the f32 frame embeddings to its
 encoder's input, so by JAX's type promotion its encoder runs in f32 under
@@ -212,22 +214,40 @@ def _shared_attn_group(cfg: ModelConfig, i: int):
 # no-cache forward (the consistency checks' reference for the cached path)
 # ---------------------------------------------------------------------------
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """``repro``'s ``checkpoint_dots_with_no_batch_dims`` as a selective
+    checkpoint policy: keep the outputs of the products with no batch
+    dimensions (``aten.mm`` / ``aten.addmm``, which every projection
+    lowers to), recompute everything else in the backward, batched
+    products (``aten.bmm``) and the kernels' autograd Functions
+    included."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _layer_runner(remat: str):
     """``run(fn, *args)`` that calls one layer: directly (``"none"``), or
-    under ``torch.utils.checkpoint`` (``"full"``: the layer keeps only its
-    inputs and runs again in the backward; the counterpart of
-    ``repro``'s ``_maybe_remat``).  The forward draws no random numbers,
-    so no RNG state is kept for the recompute."""
+    under ``torch.utils.checkpoint``, the counterpart of ``repro``'s
+    ``_maybe_remat``: ``"full"`` keeps only the layer's inputs and runs it
+    again in the backward; ``"dots"`` keeps the outputs of its products
+    with no batch dimensions too (``_save_dots``) and recomputes the
+    rest.  The forward draws no random numbers, so no RNG state is kept
+    for the recompute."""
     if remat == "none":
         return lambda fn, *args: fn(*args)
     if remat == "full":
         return lambda fn, *args: checkpoint(fn, *args, use_reentrant=False,
                                             preserve_rng_state=False)
     if remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (save the matmul outputs, recompute the rest) is "
-            "not ported yet: ROADMAP.md, Queue 1, item 6 (c); use 'none' or "
-            "'full'")
+        from torch.utils.checkpoint import \
+            create_selective_checkpoint_contexts
+        ctx = functools.partial(create_selective_checkpoint_contexts,
+                                _save_dots)
+        return lambda fn, *args: checkpoint(fn, *args, use_reentrant=False,
+                                            preserve_rng_state=False,
+                                            context_fn=ctx)
     raise ValueError(f"unknown remat policy {remat!r}; have 'none', "
                      f"'full', 'dots'")
 
@@ -280,9 +300,10 @@ def model_forward(params, cfg: ModelConfig, tokens, *, extra_embeds=None,
                   remat: str = "none"):
     """Full forward to logits.  tokens: (B, T) int; ``extra_embeds``: the
     vlm patches (B, vision_tokens, d) or the audio frames (B, Te, d).
-    ``remat``: ``"none"``, or ``"full"`` to recompute every layer (each
+    ``remat``: ``"none"``, ``"full"`` to recompute every layer (each
     Mamba2 layer, each use of the hybrid's shared block, each encoder
-    layer) in the backward; ``"dots"`` is not ported.
+    layer) in the backward, or ``"dots"`` to recompute all of each layer
+    but its products with no batch dimensions (``_save_dots``).
     Returns ``(logits (B, T_total, V), aux_loss)``: T_total counts the vlm
     prefix, and the aux loss (moe only, else 0) is summed over layers."""
     run = _layer_runner(remat)

@@ -111,6 +111,10 @@ def seed_of(topo_key, index):
 
 ZERO_K = 3                 # buckets of the ZeRO-1 cases, blocks of ZeRO-3
 
+# every 0/1 contributing mask of 2 pods: the lane_quorum cases
+# (tests/test_torch_faults_driver.py) on a (pod 2 x data 2) topology
+QUORUM_MASKS = ((1, 1), (1, 0), (0, 1), (0, 0))
+
 
 def zero_cases(topo_key):
     """[{name, coll, strategy, dtype, rows, kw, root, replicate, flat}]:

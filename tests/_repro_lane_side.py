@@ -8,6 +8,8 @@ count=<devices>`` (the test process never sets it).
   python tests/_repro_lane_side.py gradsync_tree IN.npz OUT.npz  # 4
   python tests/_repro_lane_side.py train OUT.json ARGV...    # 4 devices
   python tests/_repro_lane_side.py ckpt OUTDIR GS,GS ARGV...  # 4 devices
+  python tests/_repro_lane_side.py quorum IN.npz OUT.npz     # 4 devices
+  python tests/_repro_lane_side.py faults CASES.json OUT.json  # 4 devices
 
 ``collectives`` runs every case of ``_collective_grid`` through
 ``repro``'s LaneComm on repro's own conformance meshes, ``zero`` its
@@ -18,7 +20,12 @@ gradient trees; ``train`` runs ``repro.launch.train.main``
 with ARGV for each ``--arch`` given and records every step's loss at
 full precision (its log lines print 4 decimals); ``ckpt`` runs
 ``repro.launch.train.main`` with ARGV once per comma-separated
-``--gradsync`` value GS, each with ``--ckpt OUTDIR/GS``.
+``--gradsync`` value GS, each with ``--ckpt OUTDIR/GS``.  ``quorum`` runs
+``repro.runtime.straggler``'s ``quorum_stage`` and ``quorum_mean`` and
+``LaneComm.grad_sync(strategy="lane_quorum")`` on a (pod 2 × data 2)
+mesh under every 0/1 mask of the 2 pods (``grid.QUORUM_MASKS``); ``faults``
+runs ``repro.launch.train.main`` once per named argv of CASES.json and
+records each run's losses, stdout and the ``ValueError`` it raised.
 """
 import builtins
 import json
@@ -189,6 +196,74 @@ def ckpt(out_dir, strategies, argv):
         assert rc == 0, (gs, rc)
 
 
+def quorum(in_path, out_path):
+    """IN.npz: ``x`` (4, s), ``loss`` (4,) and ``tree/<leaf>`` (4, ...)
+    stacked by global rank.  OUT.npz, per mask ``m`` (e.g. ``10``):
+    ``m/stage`` quorum_stage of each rank's ``x``, ``m/mean``
+    quorum_mean of its loss, ``m/tree/<leaf>`` the lane_quorum grad sync
+    (3 buckets) of its tree, each (4, ...)."""
+    from repro.runtime.straggler import quorum_mean, quorum_stage
+    mesh = jax.make_mesh((2, 2), ("pod", "data"))
+    topo = LaneTopology(node_axes=("data",), lane_axis="pod")
+    spec = P(("pod", "data"))
+    sharding = NamedSharding(mesh, spec)
+    with np.load(in_path) as z:
+        x, loss = z["x"], z["loss"]
+        tree = {k.split("/", 1)[1]: z[k] for k in z.files
+                if k.startswith("tree/")}
+    put = lambda a: jax.device_put(jnp.asarray(a), sharding)
+    out = {}
+    for mask in grid.QUORUM_MASKS:
+        m = jnp.asarray(mask, jnp.float32)
+        comm = LaneComm(topo, CommConfig(buckets=3), mesh=mesh)
+
+        def fn(x, loss, t, m=m, comm=comm):
+            c = m[jax.lax.axis_index("pod")]
+            st = quorum_stage("pod", c)(x[0])
+            qm = quorum_mean(loss[0], "pod", c)
+            g = comm.grad_sync(jax.tree.map(lambda a: a[0], t),
+                               strategy="lane_quorum", contributing=c)
+            return st[None], qm[None], jax.tree.map(lambda a: a[None], g)
+        st, qm, g = jax.jit(jax.shard_map(
+            fn, mesh=mesh, in_specs=(spec, spec, spec),
+            out_specs=(spec, spec, spec)))(
+                put(x), put(loss), jax.tree.map(put, tree))
+        key = "".join(map(str, mask))
+        out[f"{key}/stage"] = np.asarray(st)
+        out[f"{key}/mean"] = np.asarray(qm)
+        for leaf, v in g.items():
+            out[f"{key}/tree/{leaf}"] = np.asarray(v)
+    np.savez(out_path, **out)
+
+
+def faults(cases_path, out_path):
+    """For each ``name: argv`` of CASES.json, ``repro.launch.train.main``
+    with ``argv`` (plus ``--log-every 1``): OUT.json maps the name to its
+    losses at full precision, its stdout, its return code and the text of
+    the ``ValueError`` it raised (or None)."""
+    import contextlib
+    import io
+    import repro.launch.train as jtrain
+    out = {}
+    for name, argv in json.loads(pathlib.Path(cases_path).read_text()) \
+            .items():
+        got = []
+
+        def record(x, got=got):     # train.py's only float(): the loss
+            got.append(builtins.float(x))
+            return got[-1]
+        jtrain.float = record
+        buf, rc, err = io.StringIO(), None, None
+        with contextlib.redirect_stdout(buf):
+            try:
+                rc = jtrain.main([*argv, "--log-every", "1"])
+            except ValueError as e:
+                err = str(e)
+        out[name] = {"losses": got, "log": buf.getvalue(), "rc": rc,
+                     "error": err}
+    pathlib.Path(out_path).write_text(json.dumps(out))
+
+
 if __name__ == "__main__":
     cmd, *rest = sys.argv[1:]
     if cmd == "collectives":
@@ -201,5 +276,9 @@ if __name__ == "__main__":
         gradsync(*rest)
     elif cmd == "ckpt":
         ckpt(rest[0], rest[1], rest[2:])
+    elif cmd == "quorum":
+        quorum(*rest)
+    elif cmd == "faults":
+        faults(*rest)
     else:
         train(rest[0], rest[1:])

@@ -626,3 +626,127 @@ def serve_gathers_rank(arch):
     z3, _, _ = _serve_tokens(params, cfg, "mixed", slots=2,
                              hosting="lane_zero3", topo=topo)
     return cfg.num_layers, n1, step.gathers(), rep, z3
+
+
+# ---------------------------------------------------------------------------
+# the quorum collectives and the recovery ladder
+# (tests/test_torch_faults_driver.py)
+# ---------------------------------------------------------------------------
+
+def quorum_rank(in_path):
+    """On a 2 x 2 topology, this rank's ``x``, ``loss`` and ``tree/<leaf>``
+    entries of ``in_path`` (stacked by global rank) under every mask of
+    ``grid.QUORUM_MASKS``: ``quorum_stage`` on ``x`` in this rank's stripe
+    of a bucket, ``quorum_mean`` of ``loss`` and the ``lane_quorum`` grad
+    sync (3 buckets) of the tree; and the ``lane`` sync of the tree.
+    Returns {"<mask>/stage" | "<mask>/mean" | "<mask>/tree/<leaf>" |
+    "lane/tree/<leaf>": array}."""
+    from repro_torch.comm import CommConfig, LaneComm
+    from repro_torch.launch.mesh import new_lane_topology
+    from repro_torch.runtime import quorum_mean, quorum_stage
+    topo = new_lane_topology(2, 2)
+    comm = LaneComm(topo, CommConfig(buckets=3))
+    g = topo.global_rank()
+    with np.load(in_path) as z:
+        x = torch.from_numpy(z["x"][g])
+        loss = torch.tensor(z["loss"][g])
+        tree = {k.split("/", 1)[1]: z[k][g] for k in z.files
+                if k.startswith("tree/")}
+    out = {}
+    runs = [(m, "".join(map(str, m))) for m in grid.QUORUM_MASKS]
+    for mask, key in [*runs, (None, "lane")]:
+        t = {k: torch.tensor(v) for k, v in tree.items()}
+        if mask is None:
+            synced = comm.grad_sync(t, strategy="lane")
+        else:
+            c = float(mask[topo.lane_rank()])
+            bucket = torch.zeros(topo.n() * x.numel())
+            s = x.numel()
+            i = topo.node_rank()
+            bucket[i * s:(i + 1) * s] = x
+            quorum_stage(topo, c)(bucket)()
+            out[f"{key}/stage"] = bucket[i * s:(i + 1) * s].numpy()
+            out[f"{key}/mean"] = quorum_mean(loss, topo, c).numpy()
+            synced = comm.grad_sync(t, strategy="lane_quorum",
+                                    contributing=c)
+        assert synced is t
+        for leaf, v in synced.items():
+            out[f"{key}/tree/{leaf}"] = v.numpy()
+    return out
+
+
+def _duplicated_pod0_loader(batch):
+    """Make ``launch.train``'s loader hand every rank of pod 1 the rows of
+    its counterpart in pod 0 (global rows [row0 - batch/2, ...)), this
+    process only; returns the function that undoes it."""
+    import repro_torch.launch.train as T
+    real = T.make_loader
+
+    class Duped:
+        def __init__(self, inner):
+            self.inner = inner
+
+        def batch_slice(self, step, row0, rows):
+            return self.inner.batch_slice(step, row0 % (batch // 2), rows)
+
+    T.make_loader = lambda *a, **kw: Duped(real(*a, **kw))
+    return lambda: setattr(T, "make_loader", real)
+
+
+def faults_rank(tmp, npz, base, cases):
+    """On a 4-rank world (2 pods x 2), ``launch.train.run`` once per
+    ``(name, argv, mode)`` of ``cases``, with ``base`` argv first and
+    ``{ckpt}`` in argv standing for ``<tmp>/<name>``.  Modes (a
+    ``+``-joined set): ``repro_weights`` starts from the ``repro``-layout
+    weights in ``npz`` (``save_tree``; else from ``--seed``);
+    ``dup_pod0`` feeds pod 1 pod 0's rows (``_duplicated_pod0_loader``);
+    ``copy=<src>/<step>`` first copies ``<tmp>/<src>`` into the run's
+    directory without its step ``<step>`` (on world rank 0, between
+    barriers).  Each run's stdout is captured, and a ``ValueError`` it
+    raises is its result.  Returns {name: {"losses", "digest", "error",
+    "out", "events" (the health transitions as (step, old, new)),
+    "saves" (the steps this rank committed), "restarts"}}."""
+    import contextlib
+    import io
+    import shutil
+    import torch.distributed as dist
+    from repro_torch.bridge import params_from_repro
+    from repro_torch.configs import resolve
+    from repro_torch.launch.train import params_digest, run
+    tmp = pathlib.Path(tmp)
+    out = {}
+    for name, argv, mode in cases:
+        modes = dict(m.partition("=")[::2] for m in mode.split("+") if m)
+        argv = [a.format(ckpt=str(tmp / name)) for a in [*base, *argv]]
+        arch = argv[argv.index("--arch") + 1]
+        if "copy" in modes:
+            src, step = modes["copy"].split("/")
+            if dist.get_rank() == 0:
+                shutil.copytree(tmp / src, tmp / name)
+                shutil.rmtree(tmp / name / f"step_{step}")
+            dist.barrier()
+        params = params_from_repro(load_tree(npz), resolve(arch, smoke=True),
+                                   device="cpu") \
+            if "repro_weights" in modes else None
+        undo = _duplicated_pod0_loader(
+            int(argv[argv.index("--batch") + 1])) \
+            if "dup_pod0" in modes else None
+        buf, stats = io.StringIO(), {}
+        res = {"losses": None, "digest": None, "error": None}
+        try:
+            with contextlib.redirect_stdout(buf):
+                losses, p, _ = run(argv, params=params, stats=stats)
+            res.update(losses=losses,
+                       digest=None if p is None else params_digest(p))
+        except ValueError as e:
+            res["error"] = str(e)
+        finally:
+            if undo is not None:
+                undo()
+        res["out"] = buf.getvalue()
+        res["events"] = [(e.step, e.old, e.new)
+                         for e in stats.get("events", [])]
+        res["saves"] = [r["step"] for r in stats.get("saves", [])]
+        res["restarts"] = stats.get("restarts")
+        out[name] = res
+    return out

@@ -28,6 +28,7 @@ from repro.core import costmodel as jcm
 from repro.optim import gradsync as jgs
 from repro_torch.comm import CommConfig, LaneComm, get_impl
 from repro_torch.comm import costs as tcosts
+from repro_torch.comm.registry import UNPORTED
 from repro_torch.core import costmodel as tcm
 from repro_torch.core.lane import LaneTopology
 from repro_torch.launch import mesh
@@ -192,19 +193,17 @@ def test_hw_defaults_are_an_h100_hosts():
 # ---------------------------------------------------------------------------
 
 def test_unported_cells_name_their_items():
-    """What stays unported names its item (``lane_quorum``,
-    ``moe_route``: 10); the ZeRO and ``kv_splice`` cells resolve."""
+    """What stays unported names its item (``moe_route``: 10); the ZeRO,
+    ``lane_quorum`` and ``kv_splice`` cells resolve."""
     topo = LaneTopology(1, 1, lane_rank=0, node_rank=0, node_group=None,
                         lane_group=None, group=None, node_ranks=[0],
                         lane_ranks=[0], ranks=[0])
     comm = LaneComm(topo)
-    for strategy, item in (("lane_quorum", "item 10"),):
-        with pytest.raises(NotImplementedError, match=item):
-            get_impl("grad_sync", strategy)
-        with pytest.raises(NotImplementedError, match=item):
-            CommConfig(strategy=strategy)
-        with pytest.raises(NotImplementedError, match=item):
-            comm.grad_sync({"g": torch.zeros(2)}, strategy=strategy)
+    entry = get_impl("grad_sync", "lane_quorum")
+    assert entry.strategy == "lane_quorum" and not entry.auto_ok
+    assert entry.feasible(2, 3, 4) and not entry.feasible(2, 3, 5)
+    assert CommConfig(strategy="lane_quorum").strategy == "lane_quorum"
+    assert "lane_quorum" not in [s for _, s in UNPORTED]
     for strategy in ("lane_zero1", "lane_zero3"):
         assert get_impl("grad_sync", strategy).strategy == strategy
         assert CommConfig(strategy=strategy).strategy == strategy
@@ -217,12 +216,13 @@ def test_unported_cells_name_their_items():
         comm.moe_route(x)
     with pytest.raises(ValueError, match="registered strategies"):
         get_impl("allreduce", "lane_zero9")
-    for strategy in ("native", "lane", "lane_pipelined", "lane_int8"):
+    for strategy in ("native", "lane", "lane_pipelined", "lane_int8",
+                     "lane_quorum"):
         assert comm.param_layout(strategy) == "replicated"
     assert comm.param_layout("lane_zero1") == "zero1"
     assert comm.param_layout("lane_zero3") == "zero3"
     with pytest.raises(ValueError, match="no param layout"):
-        comm.param_layout("lane_quorum")
+        comm.param_layout("auto")
 
 
 # ---------------------------------------------------------------------------

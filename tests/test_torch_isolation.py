@@ -38,6 +38,18 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_the_runtime_is_covered():
+    """The fault-tolerant runtime is part of the port, and so of the
+    checks below."""
+    names = set(_modules())
+    assert {f"repro_torch.runtime.{m}" for m in (
+        "faults", "watchdog", "health", "straggler", "elastic")} \
+        | {"repro_torch.runtime"} <= names
+    assert {f.name for f in FILES if f.parent.name == "runtime"} == {
+        "__init__.py", "faults.py", "watchdog.py", "health.py",
+        "straggler.py", "elastic.py"}
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.name)
 def test_no_jax_or_repro_import(path):
     tree = ast.parse(path.read_text(), filename=str(path))

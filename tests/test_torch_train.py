@@ -46,11 +46,13 @@ from repro.models import loss_fn as jloss_fn
 from repro.optim import adamw as jadamw
 from repro_torch import _tree
 from repro_torch.bridge import params_from_repro, params_to_repro
+from repro_torch.checkpoint import committed_steps
 from repro_torch.configs import RunConfig, resolve
 from repro_torch.launch import train
 from repro_torch.launch.steps import build_train_step, init_train_state
 from repro_torch.models import loss_fn, model_forward
 from repro_torch.optim import AdamWConfig
+from torch.utils._python_dispatch import TorchDispatchMode
 
 LOSS_TOL = 1e-5
 GRAD_TOL = 1e-4
@@ -328,19 +330,59 @@ def test_remat_full_equals_none(zoo, arch):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-9)
 
 
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "mamba2-780m",
+                                  "granite-moe-3b-a800m"])
+def test_remat_dots_equals_none_and_repro(zoo, arch):
+    """``remat="dots"`` (the products with no batch dimensions saved, the
+    rest recomputed) gives none's loss and every gradient within 1e-6, and
+    ``repro``'s ``remat="dots"`` loss within 1e-6; it recomputes less
+    than ``"full"`` does (fewer matmuls in the backward)."""
+    jc, tc, tree, _ = zoo(arch)
+    toks, labels, extra = _batch(tc, seed=5)
+    jl = jax.jit(lambda p, t, l: jloss_fn(p, jc, t, l, remat="dots"))(
+        tree, *_jax_batch(toks, labels, extra)[:2])
+    batch = _torch_batch(toks, labels, extra)
+    out, mms = {}, {}
+    for remat in ("none", "dots", "full"):
+        params, _ = init_train_state(
+            params_from_repro(tree, tc, device="cpu"), device="cpu")
+        loss = loss_fn(params, tc, batch[0], batch[1], remat=remat)
+        with _CountMM() as count:
+            grads = torch.autograd.grad(loss, _tree.leaves(params),
+                                        allow_unused=True,
+                                        materialize_grads=True)
+        out[remat], mms[remat] = (float(loss.detach()), grads), count.n
+    (l0, g0), (l1, g1) = out["none"], out["dots"]
+    assert abs(l1 - l0) <= 1e-6 * abs(l0)
+    assert abs(l1 - float(jl)) <= 1e-6 * abs(float(jl))
+    for a, b in zip(g0, g1):
+        torch.testing.assert_close(b, a, rtol=1e-6, atol=1e-9)
+    assert mms["none"] == mms["dots"] < mms["full"], mms
+
+
+class _CountMM(TorchDispatchMode):
+    """Counts ``aten.mm`` / ``aten.addmm`` calls while it is on."""
+    n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+            self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
 def test_remat_dots_and_gradsync_name_their_items(zoo):
     _, tc, tree, _ = zoo("llama3.2-3b")
     params = params_from_repro(tree, tc, device="cpu")
     toks, labels, _ = _torch_batch(*_batch(tc, seed=0))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        loss_fn(params, tc, toks, labels, remat="dots")
+    assert torch.isfinite(loss_fn(params, tc, toks, labels, remat="dots"))
     with pytest.raises(ValueError, match="remat"):
         RunConfig(model=tc, remat="some")
     with pytest.raises(ValueError, match="accum_dtype"):
         RunConfig(model=tc, accum_dtype="float16")
-    for strategy, item in (("lane_quorum", "item 10"), ("auto", "item 10")):
-        with pytest.raises(NotImplementedError, match=item):
-            RunConfig(model=tc, gradsync=strategy)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        RunConfig(model=tc, gradsync="auto")
+    assert RunConfig(model=tc, gradsync="lane_quorum",
+                     remat="dots").gradsync == "lane_quorum"
     for strategy in ("lane_zero1", "lane_zero3"):
         assert RunConfig(model=tc, gradsync=strategy, fsdp_prefetch=-1,
                          fsdp_regather=True).gradsync == strategy
@@ -376,24 +418,88 @@ def test_train_main_microbatch_and_remat_on_cpu():
 
 @pytest.mark.parametrize("flags,item", [
     (["--gradsync", "auto"], "item 10"),
-    (["--ckpt", "runs/x", "--fault-plan", "seed:1"], "item 10"),
-    (["--fault-plan", "seed:1"], "item 10"),
     (["--tune"], "item 10"),
     (["--tuning-cache", "t.json"], "item 10"),
     (["--model-parallel", "2"], "item 10"),
     (["--expert-parallel"], "item 10"),
     (["--ep-blocks", "2"], "item 10"),
-    (["--lose-chips", "1"], "item 10"),
-    (["--quorum-staleness", "3"], "item 10"),
-    (["--max-restarts", "0"], "item 10"),
-    (["--gradsync", "lane_quorum"], "item 10"),
-    (["--remat", "dots"], "item 6"),
 ])
 def test_train_main_unported_flags_raise(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         train.main(["--arch", "llama3.2-3b", "--smoke", "--steps", "1",
                     "--batch", "2", "--seq", "8", "--device", "cpu",
                     *flags])
+
+
+RUNTIME = ["--arch", "llama3.2-3b", "--smoke", "--steps", "3", "--batch",
+           "2", "--seq", "32", "--log-every", "1", "--device", "cpu"]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--ckpt", "{tmp}", "--fault-plan", "seed:1"],
+    ["--fault-plan", "seed:1"],
+    ["--lose-chips", "1"],
+    ["--quorum-staleness", "3"],
+    ["--max-restarts", "0"],
+    ["--gradsync", "lane_quorum"],
+    ["--remat", "dots"],
+], ids=lambda f: " ".join(a for a in f if a != "{tmp}"))
+def test_train_main_runtime_flags_act(flags, tmp_path, capsys):
+    """The runtime's flags and the cells they raised for before, run on
+    one process as ``repro`` runs them on one device.  (Across ranks:
+    tests/test_torch_faults_driver.py.)"""
+    from repro.runtime import FaultPlan as JFaultPlan
+    plain = train.main(RUNTIME)
+    capsys.readouterr()
+    flags = [a.format(tmp=tmp_path / "ck") for a in flags]
+    if flags[-1] == "seed:1":
+        # a seeded plan, repro's draw; seed 1 over 3 steps fails the
+        # step-2 save twice, which the retry absorbs
+        every = ["--ckpt-every", "2"] if "--ckpt" in flags else []
+        got = train.main(RUNTIME + flags + every)
+        out, err = capsys.readouterr()
+        want = JFaultPlan.generate(1, 3, 1)
+        assert [dataclasses.astuple(f) for f in want.faults] == \
+            [("ckpt_io", 2, 2, 0, 2, 0)]
+        assert f"fault plan (seeded): {want.faults}" in out
+        assert got == plain
+        if "--ckpt" in flags:
+            assert "attempt 2/3 failed" in err
+            assert committed_steps(str(tmp_path / "ck")) == [2, 3]
+    elif flags[0] == "--lose-chips":
+        # every loss empties the one-device mesh, as in repro
+        with pytest.raises(ValueError, match="all slices of the outer "
+                                             "batch axis lost"):
+            train.main(RUNTIME + flags)
+    elif flags[0] == "--quorum-staleness":
+        # one pod masked for three steps: K = 3 keeps degrading (each
+        # step's loss exactly 0), the default K = 2 restarts at step 2
+        # and finds no pod left
+        argv = RUNTIME + ["--gradsync", "lane_quorum", "--fault-plan",
+                          "pod_slow@0-2:pod=0"]
+        assert train.main(argv + flags) == [0.0, 0.0, 0.0]
+        assert "degraded step 2: pod 0 masked; rows [0, 2)" in \
+            capsys.readouterr().out
+        with pytest.raises(ValueError, match="all slices"):
+            train.main(argv)
+    elif flags[0] == "--max-restarts":
+        # no quorum path: the lost pod restarts at once, and no restart
+        # is allowed
+        argv = RUNTIME + ["--fault-plan", "pod_lost@1:pod=0"]
+        with pytest.raises(RuntimeError, match="giving up after 0 "
+                                               "restarts"):
+            train.main(argv + flags)
+        out, err = capsys.readouterr()
+        assert "HEALTHY -> RESTART" in out
+        assert "giving up after 0 restarts" in err
+        with pytest.raises(ValueError, match="all slices"):
+            train.main(argv)
+    elif flags[0] == "--gradsync":
+        # the full quorum on one device is the plain step, bit for bit
+        assert train.main(RUNTIME + flags) == plain
+    else:
+        np.testing.assert_allclose(train.main(RUNTIME + flags), plain,
+                                   rtol=1e-6)
 
 
 ONE = ["--arch", "llama3.2-3b", "--smoke", "--steps", "2", "--batch", "2",
