@@ -182,12 +182,32 @@ and the script exits non-zero:
      pod_lost@1:pod=0 --quorum-staleness 1``: RESTART at step 2, its
      emergency checkpoint committed and verified, then ``repro``'s
      ValueError ("all slices of the outer batch axis lost"), which the
-     phase requires.
+     phase requires;
+ 12. measured-cost tuning (``tuning/``, ``core/guidelines.py``,
+     ``LaneComm.select``'s measured tier, ``launch/train.py``'s
+     ``--gradsync auto``, ``--tune`` and ``--tuning-cache``) on phase
+     11's one-rank world and 1 x 1 topology, its cache directory under
+     build/ removed at the end, also on failure:
+     (a) ``tuning.probe_cells`` at ``DEFAULT_LADDER`` on the card (each
+     cell's median and minimum µs), the cache saved, loaded and saved
+     again with identical bytes, then the fit and the guideline report
+     printed (constants, residuals, each cell's ratio; nothing gated: at
+     p = 1 no row sees the lane level);
+     (b) llama3.2-3b at full width, bf16, 4 x 1024 tokens, 3 steps
+     through ``launch.train.run`` three times: ``--gradsync auto --tune
+     --tuning-cache C`` (the gradient payload lies beyond the ladder:
+     ranked by the model, and the three cells' misses committed to C);
+     the same again (the worklist probe times exactly those payloads, and
+     its seconds are printed; ranked by measurement, the strategy the
+     table's argmin at the payload, C's misses consumed); and
+     ``--gradsync <that strategy>`` (the losses of the second run, bit for
+     bit); K1 28 a step in each; after the phase the cost model's
+     constants are those from before it.
 
 Both kernels choose by dtype inside their C entry point: bf16 (the
 serving and training paths) runs on the tensor cores, f32 on the CUDA
 cores.  The line before the last is a JSON object with K1's and K2's
-numbers (launches per path, the training runs and phases 10 and 11
+numbers (launches per path, the training runs and phases 10, 11 and 12
 included);
 the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -1893,7 +1913,7 @@ def phase_lane_cpu() -> None:
 
 
 def phase_lanes(name, first_loss, served) -> dict:
-    """Phases 8, 9, 10 and 11 on one NCCL world (8d on the CPU after
+    """Phases 8, 9, 10, 11 and 12 on one NCCL world (8d on the CPU after
     it)."""
     topo, init = timed("8a lane world", phase_lane_world)
     try:
@@ -1907,6 +1927,9 @@ def phase_lanes(name, first_loss, served) -> dict:
                               phase_ckpt, topo, name, served))
         launches.update(timed("11 faults, quorum and restarts",
                               phase_faults, topo, name))
+        torch.cuda.empty_cache()
+        launches.update(timed("12 measured-cost tuning", phase_tuning,
+                              topo, name))
     finally:
         dist.destroy_process_group()
         init.unlink(missing_ok=True)
@@ -2810,6 +2833,157 @@ def phase_faults(topo, name) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: measured-cost tuning on the one-rank world
+# ---------------------------------------------------------------------------
+
+TUNE_ARCH = "llama3.2-3b"
+TUNE_STEPS = 3
+
+
+def _tune_root() -> pathlib.Path:
+    return pathlib.Path(__file__).resolve().parent / "build" / "tuning_phase"
+
+
+def phase_tune_probe(topo, root, name) -> None:
+    """12a: ``tuning.tune_smoke.tune`` at DEFAULT_LADDER on the card:
+    each cell's median and minimum printed, the cache committed to
+    ``root/cache.json`` (the file 12b starts from) and saved, loaded and
+    saved again (the bytes must be identical), then ``fit_hw`` and
+    ``build_report``: the constants, residuals and each cell's ratio are
+    printed, and nothing is gated on them (at p = 1 the fit sees no lane
+    level; the tolerance is infinite)."""
+    from repro_torch.tuning import DEFAULT_LADDER
+    from repro_torch.tuning.tune_smoke import tune
+    rc, table, _, _, probe_s = tune(
+        topo, device="cuda", cache=root / "cache.json",
+        out=root / "report.json", ladder=DEFAULT_LADDER,
+        tolerance=float("inf"))
+    log("tune", f"{name} | probe at {DEFAULT_LADDER} B: {len(table)} cells "
+        f"on {table.signatures()} in {probe_s:.2f} s; tune_smoke exit {rc}")
+    if rc:
+        raise RuntimeError(f"tune_smoke.tune exited {rc} (round trip or fit)")
+
+
+def phase_tune_train(topo, root, name) -> dict:
+    """12b: TUNE_ARCH at full width, bf16, TRAIN_BATCH x TRAIN_SEQ,
+    TUNE_STEPS steps through ``launch.train.run`` on the 1 x 1 topology,
+    three runs: (1) ``--gradsync auto --tune --tuning-cache C`` on 12a's
+    cache C (the ladder is measured already, so nothing is probed): the
+    gradient payload lies beyond the ladder, so the sync is ranked by the
+    model and its misses are committed to C; (2) the same again: the
+    worklist probe times exactly those payloads, the sync is ranked by
+    measurement, the strategy is the table's argmin at the payload and
+    C's misses are consumed; (3) ``--gradsync <that strategy>``: the
+    losses of (2), bit for bit.  K1 once per layer and step in each."""
+    from repro_torch.tuning import (load_misses, load_timing_table,
+                                    topology_signature)
+    cfg = resolve(TUNE_ARCH)
+    cache = root / "cache.json"
+    base = ["--arch", TUNE_ARCH, "--steps", str(TUNE_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--log-every", "1",
+            "--device", "cuda"]
+    tuned = ["--gradsync", "auto", "--tune", "--tuning-cache", str(cache)]
+    want = {"flash_attention": cfg.num_layers * TUNE_STEPS, "ssd": 0}
+    out, runs = {}, []
+
+    def run(label, extra):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        stats = {}
+        with StepClock(trace_at=10 ** 9) as clock:
+            fa.launches = k2.launches = 0
+            t0 = time.perf_counter()
+            losses, params, _ = train.run(base + extra, topo=topo,
+                                          stats=stats)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {"flash_attention": fa.launches, "ssd": k2.launches}
+        # the gradient sync's payload: every parameter as f32
+        payload = 4 * sum(leaf.numel() for leaf in _tree.leaves(params))
+        del params
+        sels = {(x.strategy, x.source, x.payload_bytes)
+                for x in stats["selections"]}
+        tuning = stats.get("tuning", {})
+        log("tune", f"{name} | {TUNE_ARCH} {' '.join(extra)}, bf16, "
+            f"{TRAIN_BATCH} x {TRAIN_SEQ}: losses {losses}; selections "
+            f"{sorted(sels)}; probe {tuning}; step ms "
+            f"{[round(x * 1e3, 1) for x in clock.seconds]}; {wall:.1f} s; "
+            f"launches {launches} (want {want}); peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if launches != want or len(losses) != TUNE_STEPS \
+                or not all(np.isfinite(losses)):
+            raise RuntimeError(f"{label}: launches {launches}, want {want}; "
+                               f"losses {losses}")
+        out[f"tune {label}"] = launches
+        runs.append((losses, sels, tuning, payload))
+
+    run("auto model", tuned)
+    misses = load_misses(cache)
+    (_, sels1, _, payload), = runs
+    want_misses = sorted(("grad_sync", s, 1, 1, payload)
+                         for s in ("native", "lane", "lane_pipelined"))
+    log("tune", f"{name} | run 1 ranked by {sorted({x[1] for x in sels1})}"
+        f"; misses committed {misses}")
+    if {x[1:] for x in sels1} != {("model", payload)} \
+            or misses != want_misses:
+        raise RuntimeError(f"run 1: selections {sels1}, misses {misses}, "
+                           f"want {want_misses}")
+    run("auto measured", tuned)
+    losses2, sels2, tuning2, _ = runs[1]
+    table = load_timing_table(cache)
+    sig = topology_signature(1, 1, device="cuda")
+    measured = {s: table.lookup_us("grad_sync", s, sig, payload)
+                for s in ("native", "lane", "lane_pipelined")}
+    best = min(measured, key=measured.get)
+    left = load_misses(cache)
+    log("tune", f"{name} | run 2: worklist of {tuning2.get('worklist')} "
+        f"cells probed in {tuning2.get('worklist_s', float('nan')):.2f} s "
+        f"(ladder {tuning2.get('ladder_s', float('nan')):.2f} s, all "
+        f"measured before); the gradient sync at {payload} B measured "
+        f"{ {k: round(v, 1) for k, v in measured.items()} } us, argmin "
+        f"{best}; selected {sorted(sels2)}; misses left {left}")
+    if sels2 != {(best, "measured", payload)} or left \
+            or tuning2.get("worklist") != 3:
+        raise RuntimeError(f"run 2: selections {sels2}, argmin {best}, "
+                           f"misses left {left}, probe {tuning2}")
+    run("fixed", ["--gradsync", best])
+    losses3 = runs[2][0]
+    log("tune", f"{name} | --gradsync {best}: losses "
+        + ("bit-identical to" if losses3 == losses2 else "DIFFER from")
+        + " the measured auto run's")
+    if losses3 != losses2:
+        raise RuntimeError(f"--gradsync {best} {losses3} against auto "
+                           f"{losses2}")
+    return out
+
+
+def phase_tuning(topo, name) -> dict:
+    """Phase 12; its cache directory (under build/, ignored by git) is
+    removed at the end, also on failure, and the cost model's constants
+    must be those from before the phase."""
+    from repro_torch.core.costmodel import get_hw
+    root = _tune_root()
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    hw0 = get_hw()
+    t0 = time.perf_counter()
+    try:
+        timed("12a probe, cache and fit", phase_tune_probe, topo, root, name)
+        with torch.enable_grad():
+            launches = timed("12b --gradsync auto at full width",
+                             phase_tune_train, topo, root, name)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        log("time", f"phase 12: {time.perf_counter() - t0:.1f} s")
+    log("tune", f"{name} | cost-model constants after phase 12 "
+        + ("are" if get_hw() is hw0 else "ARE NOT") + " those before it")
+    if get_hw() is not hw0:
+        raise RuntimeError(f"get_hw() {get_hw()} after phase 12, {hw0} "
+                           f"before")
+    return launches
+
+
 def timed(label, fn, *args, **kw):
     t0 = time.perf_counter()
     out = fn(*args, **kw)
@@ -2867,8 +3041,8 @@ def main() -> int:
                 f"train {arch}", phase_train, resolve(arch), name)
             first_loss[arch] = losses[0]
             torch.cuda.empty_cache()
-    launches.update(timed("lane collectives, ZeRO, checkpoints and faults",
-                          phase_lanes, name, first_loss, served))
+    launches.update(timed("lane collectives, ZeRO, checkpoints, faults and "
+                          "tuning", phase_lanes, name, first_loss, served))
     log("time", f"total: {time.perf_counter() - t_start:.1f} s")
     by_path = {k: {a: n[k] for a, n in launches.items()}
                for k in ("flash_attention", "ssd")}

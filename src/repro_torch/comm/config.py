@@ -32,8 +32,10 @@ class CommConfig:
         — ``lane_int8`` is never auto-selected (lossy); this records that
         the owner opted in.
     record_selections: append a Selection record per auto dispatch.
-    tuner: measured-cost hook; always None in the port until the tuner is
-        ported (ROADMAP.md, Queue 1, item 10).
+    tuner: measured-cost hook (a :class:`~repro_torch.tuning.Tuner`, or
+        None): auto dispatch ranks measured cells ahead of the cost
+        model's.  It changes which registered strategy runs, never what a
+        strategy computes.
     """
 
     strategy: str = "auto"
@@ -48,10 +50,6 @@ class CommConfig:
             raise ValueError(
                 f"unknown compression {self.compression!r}; "
                 f"have {_COMPRESSIONS}")
-        if self.tuner is not None:
-            raise NotImplementedError(
-                "the measured-cost tuner is not ported yet (ROADMAP.md, "
-                "Queue 1, item 10)")
         if self.strategy != "auto":
             from .registry import (has_impl, registered_collectives,
                                    unported_item)

@@ -347,10 +347,12 @@ def _gs_zero3(comm, grads, *, num_buckets=0):
     return zero3_param_shard(flat, topo, K).div_(topo.p()), spec
 
 
-# the replicated train step runs the exact, int8 and quorum syncs: params
-# and moments stay ordinary trees, identical on every rank; the ZeRO
-# steps shard the moments (zero1) or the parameters too (zero3)
-for _s in ("native", "lane", "lane_pipelined", "lane_int8", "lane_quorum"):
+# the replicated train step runs the exact, int8 and quorum syncs and the
+# auto-dispatched one: params and moments stay ordinary trees, identical
+# on every rank; the ZeRO steps shard the moments (zero1) or the
+# parameters too (zero3)
+for _s in ("native", "lane", "lane_pipelined", "lane_int8", "lane_quorum",
+           "auto"):
     register_param_layout(_s, "replicated")
 register_param_layout("lane_zero1", "zero1")
 register_param_layout("lane_zero3", "zero3")

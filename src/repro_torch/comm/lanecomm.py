@@ -33,8 +33,11 @@ class Selection:
     """One recorded auto-dispatch decision.
 
     ranking: ((seconds, strategy), ...) — the full cost table the choice
-    was made from, ascending in seconds.  source: ``"model"`` (the §3/§5
-    closed form); measured costs come with the tuner (ROADMAP.md item 10).
+    was made from.  Ascending in seconds; with a tuner attached, measured
+    cells sort ahead of modelled ones (so seconds are ascending only
+    within each tier).  source: where the winning cost came from —
+    ``"measured"`` (timing cache, ``cfg.tuner``) or ``"model"`` (the §3/§5
+    closed form).
     """
     collective: str
     strategy: str
@@ -77,15 +80,32 @@ class LaneComm:
     def select(self, collective: str, payload_bytes: int, *,
                n: Optional[int] = None, N: Optional[int] = None,
                lead: Optional[int] = None) -> tuple[str, tuple]:
-        """Rank auto-eligible registrations by their modelled cost.
+        """Rank auto-eligible registrations by measured-then-modelled cost.
 
-        Returns (winning strategy, ((seconds, strategy), ...)), ascending.
-        Entries are skipped when they are lossy or layout-changing
+        Returns (winning strategy, ((seconds, strategy), ...)).  Entries
+        are skipped when they are lossy or layout-changing
         (``auto_ok=False``), have no cost model, or fail their
         divisibility precondition for ``lead``.
+
+        Without a tuner (``cfg.tuner is None``) every cell is priced by
+        the §3/§5 closed form and the ranking is ascending in seconds.
+        With a tuner, each cell is first looked up in the measured timing
+        table; MEASURED cells rank ahead of modelled ones (tier 0 before
+        tier 1: a measured time beats a modelled one whatever their
+        values), and unmeasured cells keep their closed-form price.  The
+        source of the winning cost lands on the recorded
+        ``Selection.source``, as in ``repro``.
         """
+        strategy, ranking, _ = self._select(collective, payload_bytes,
+                                            n=n, N=N, lead=lead)
+        return strategy, ranking
+
+    def _select(self, collective, payload_bytes, *, n=None, N=None,
+                lead=None) -> tuple[str, tuple, str]:
+        """``select``'s (strategy, ranking) and the winner's source."""
         if n is None or N is None:
             n, N = self.sizes()
+        tuner = self.cfg.tuner
         table = []
         for e in iter_impls(collective):
             if not e.auto_ok or e.cost is None:
@@ -93,16 +113,22 @@ class LaneComm:
             if lead is not None and e.feasible is not None \
                     and not e.feasible(n, N, lead):
                 continue
-            table.append((float(e.cost(n, N, payload_bytes, self.cfg)),
-                          e.strategy))
+            measured = None if tuner is None else tuner.measured_cost(
+                collective, e.strategy, n, N, payload_bytes)
+            if measured is not None:
+                table.append((0, float(measured), e.strategy))
+            else:
+                table.append((1, float(e.cost(n, N, payload_bytes,
+                                              self.cfg)), e.strategy))
         if not table:
             raise ValueError(
                 f"no auto-dispatchable implementation for {collective!r} "
                 f"(payload {payload_bytes} B, n={n}, N={N}); registered "
                 f"strategies: {strategies_for(collective)}")
         table.sort()
-        ranking = tuple(table)
-        return ranking[0][1], ranking
+        ranking = tuple((t, s) for _, t, s in table)
+        source = "measured" if table[0][0] == 0 else "model"
+        return ranking[0][1], ranking, source
 
     @property
     def last_selection(self) -> Optional[Selection]:
@@ -129,11 +155,12 @@ class LaneComm:
         strategy = strategy or self._default_strategy(collective)
         if strategy == "auto":
             payload = _payload_bytes(x)
-            strategy, ranking = self.select(collective, payload,
-                                            lead=_lead(x))
+            strategy, ranking, source = self._select(collective, payload,
+                                                     lead=_lead(x))
             if self.cfg.record_selections:
                 self.selections.append(
-                    Selection(collective, strategy, payload, ranking))
+                    Selection(collective, strategy, payload, ranking,
+                              source))
         return get_impl(collective, strategy).fn(self, x, **kw)
 
     # -- the collective surface (paper §3, Listings 1-6 + Scan) ----------

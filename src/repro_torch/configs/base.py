@@ -146,8 +146,9 @@ class RunConfig:
     gradient sync and parameter layout, ``"native"``, ``"lane"``,
     ``"lane_pipelined"`` or ``"lane_int8"`` (the replicated step),
     ``"lane_quorum"`` (the replicated step with a quorum mask),
-    ``"lane_zero1"`` or ``"lane_zero3"`` (the ZeRO steps); ``"auto"``
-    raises, naming its ROADMAP.md item.  ``gradsync_buckets``: the
+    ``"lane_zero1"`` or ``"lane_zero3"`` (the ZeRO steps), or ``"auto"``
+    (the replicated step, each sync dispatched by measured-then-modelled
+    cost, ``comm.LaneComm.select``).  ``gradsync_buckets``: the
     bucket count K of the lane strategies (0 = cost-model auto).
     ``fsdp_prefetch``: ``lane_zero3``'s per-layer gather blocks B (0 =
     cost-model auto, > 0 that many, -1 = the blocking gather, no
@@ -179,11 +180,9 @@ class RunConfig:
         # which strategies are ported is the registry's to say
         from repro_torch.comm.registry import (has_impl, strategies_for,
                                                unported_item)
-        if self.gradsync == "auto":     # meta: per-call dispatch, tuned
-            raise NotImplementedError(
-                "gradsync='auto' is not ported yet (ROADMAP.md, Queue 1, "
-                "item 10 (tuning/))")
-        if not has_impl("grad_sync", self.gradsync):
+        # "auto" is meta: per-call dispatch, tuned
+        if self.gradsync != "auto" \
+                and not has_impl("grad_sync", self.gradsync):
             item = unported_item("grad_sync", self.gradsync)
             if item is not None:
                 raise NotImplementedError(

@@ -2,8 +2,9 @@
 multi-lane collective decomposition over node and lane process groups.
 
 Counterpart of ``repro.core``: ``lane`` (the topology), ``collectives``
-(Listings 1-6 and the natives), ``pipeline`` (§5), ``costmodel`` (§3/§5)
-and ``ref`` (numpy oracles).
+(Listings 1-6 and the natives), ``pipeline`` (§5), ``costmodel`` (§3/§5),
+``guidelines`` (the paper's timing protocol) and ``ref`` (numpy
+oracles).
 """
 from .lane import LaneTopology
 from .collectives import (
@@ -20,6 +21,9 @@ from .costmodel import (
     CollectiveCost, mockup_cost, klane_time, HW, get_hw, set_hw,
     optimal_num_buckets, bucket_pipeline_time, optimal_prefetch_blocks,
 )
+from .guidelines import (
+    time_fn, time_fn_samples, median_us, GuidelineResult, check_guideline,
+)
 
 __all__ = [
     "LaneTopology",
@@ -33,4 +37,6 @@ __all__ = [
     "allreduce_pipeline_steps", "allgather_pipeline_steps",
     "CollectiveCost", "mockup_cost", "klane_time", "HW", "get_hw", "set_hw",
     "optimal_num_buckets", "bucket_pipeline_time", "optimal_prefetch_blocks",
+    "time_fn", "time_fn_samples", "median_us", "GuidelineResult",
+    "check_guideline",
 ]

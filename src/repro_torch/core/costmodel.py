@@ -120,8 +120,10 @@ class HW:
       lane_bw          50e9 B/s: one 400 Gb/s ConnectX-7 NIC per GPU.
       gpus_per_host    8.
 
-    Assumptions, neither measured nor fitted (the tuner that fits them
-    from timings is ROADMAP.md, Queue 1, item 10):
+    Assumptions, neither measured nor fitted here (``tuning.fit_hw``
+    fits all four level constants from a probed timing table, and the
+    training loop installs that fit for a run under ``--tune`` /
+    ``--tuning-cache``):
 
       alpha_node       10e-6 s: one NCCL collective within a host.
       alpha_lane       25e-6 s: one NCCL collective across hosts.

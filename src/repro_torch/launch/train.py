@@ -75,14 +75,32 @@ The recovery ladder, HEALTHY -> DEGRADED -> RESTART (``runtime``):
       --fault-plan "pod_lost@2:pod=1" --ckpt runs/ck --ckpt-every 100 \\
       --device cpu
 
+Measured-cost tuning (``tuning``), as ``repro``'s loop: ``--gradsync
+auto`` dispatches every gradient sync by cost, the timing cache
+(``--tuning-cache``, default ``tuning_cache.json`` inside ``--ckpt``)
+feeds the ranking with measured cells ahead of modelled ones, and
+``--tune`` first probes the started world's collectives (the payload
+ladder, then the misses a previous run recorded), before the model state
+is made.  The cache is the lead rank's: it alone reads the file, hands
+the table to the other ranks, and commits the cache, and the misses of
+this run after the loop.  The constants fitted to the cells of the
+run's topology are installed for the run (``core.costmodel.set_hw``)
+before the step is built, unless those cells leave a level unseen (p =
+1), and the previous ones come back when ``run`` returns or raises:
+
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch llama3.2-3b --smoke --gradsync auto --tune \\
+      --tuning-cache runs/tuning_cache.json --pods 2 --device cpu
+
 The rest of ``repro``'s training loop is not ported yet.  Each of its flags
 is accepted and raises, naming its ROADMAP.md item, when it is set away
-from its default: tensor and expert parallelism and tuning (item 10).
-Nothing is ignored silently.
+from its default: tensor and expert parallelism (item 10).  Nothing is
+ignored silently.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import math
 import os
@@ -99,6 +117,7 @@ from repro_torch._device import resolve_device
 from repro_torch.checkpoint import AsyncCheckpointer, latest_step
 from repro_torch.comm import CommConfig, LaneComm
 from repro_torch.configs import RunConfig, resolve
+from repro_torch.core.costmodel import get_hw, set_hw
 from repro_torch.data import make_loader
 from repro_torch.launch import mesh
 from repro_torch.launch.steps import (build_train_step,
@@ -110,6 +129,11 @@ from repro_torch.optim import AdamWConfig
 from repro_torch.runtime import (DEGRADED, RESTART, FaultPlan, HealthMonitor,
                                  Watchdog, corrupt_leaf_file,
                                  plan_elastic_mesh)
+from repro_torch.tuning import (DEFAULT_CACHE_NAME, DEFAULT_LADDER,
+                                SMOKE_LADDER, TimingTable, Tuner, fit_hw,
+                                load_misses, load_timing_table_or_none,
+                                probe_cells, probe_worklist,
+                                save_timing_table)
 
 # repro's flags that the port does not honour yet: (default, ROADMAP item)
 _ITEM = "ROADMAP.md, Queue 1, item"
@@ -117,8 +141,6 @@ UNPORTED = {
     "model_parallel": (1, f"{_ITEM} 10 (TP/EP)"),
     "expert_parallel": (False, f"{_ITEM} 10 (TP/EP)"),
     "ep_blocks": (1, f"{_ITEM} 10 (TP/EP)"),
-    "tune": (False, f"{_ITEM} 10 (tuning/)"),
-    "tuning_cache": ("", f"{_ITEM} 10 (tuning/)"),
 }
 
 
@@ -150,8 +172,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--gradsync", default="native",
                     help="gradient sync across ranks: native, lane, "
                          "lane_pipelined, lane_int8, lane_quorum (the "
-                         "quorum-degraded step), lane_zero1 or "
-                         "lane_zero3 (auto raises, naming its item)")
+                         "quorum-degraded step), lane_zero1, lane_zero3, "
+                         "or auto (each sync ranked by measured, then "
+                         "modelled cost)")
     ap.add_argument("--gradsync-buckets", type=int, default=0,
                     help="bucket count K; 0 = cost-model auto")
     ap.add_argument("--fsdp-prefetch", type=int, default=0,
@@ -181,6 +204,15 @@ def _parser() -> argparse.ArgumentParser:
                          "RESTART")
     ap.add_argument("--max-restarts", type=int, default=2,
                     help="in-process elastic restarts before giving up")
+    ap.add_argument("--tune", action="store_true",
+                    help="probe the started world's collective timings "
+                         "before training (repro_torch.tuning): measured "
+                         "costs then outrank the closed-form model in "
+                         "auto dispatch; results merge into the cache")
+    ap.add_argument("--tuning-cache", default="",
+                    help="timing-cache path (default: tuning_cache.json "
+                         "inside --ckpt when one is set); restored "
+                         "entries feed dispatch without re-probing")
     for name, (default, _) in UNPORTED.items():
         flag = "--" + name.replace("_", "-")
         if isinstance(default, bool):
@@ -219,10 +251,14 @@ def run(argv=None, *, params=None, topo=None, stats=None):
     rank, ``"saves"`` (per checkpoint: step, the loop's blocking seconds,
     the writer's seconds, bytes written) and ``"restore_s"``, and on
     every rank ``"events"`` (the health ladder's transitions, every
-    attempt's) and ``"restarts"``.  The log lines and the closing loss
-    check are ``repro``'s, printed by the lead rank (global rank 0 of the
-    current topology).  Resuming at or past ``--steps`` returns no
-    losses.
+    attempt's), ``"restarts"``, ``"selections"`` (the auto-dispatch
+    ``comm.Selection`` records, every attempt's), ``"hw"`` (the
+    cost-model constants the last attempt priced with) and, under
+    ``--tune``, ``"tuning"`` (the last attempt's probe: ``ladder_s`` and
+    ``worklist_s`` seconds, ``worklist`` cells probed, ``cells`` in the
+    table).  The log lines and the closing loss check are ``repro``'s,
+    printed by the lead rank (global rank 0 of the current topology).
+    Resuming at or past ``--steps`` returns no losses.
 
     The recovery ladder: each attempt trains on the topology that
     survives the lost ranks (``--lose-chips``, then the pods each RESTART
@@ -235,6 +271,14 @@ def run(argv=None, *, params=None, topo=None, stats=None):
     ``--max-restarts`` it prints ``repro``'s line and raises."""
     args = _parser().parse_args(argv)
     _refuse_unported(args)
+    prev_hw = get_hw()      # a fitted HW is this run's alone
+    try:
+        return _run(args, params, topo, stats)
+    finally:
+        set_hw(prev_hw)
+
+
+def _run(args, params, topo, stats):
     cfg = resolve(args.arch, smoke=args.smoke)
     run_cfg = RunConfig(model=cfg, remat=args.remat, gradsync=args.gradsync,
                         gradsync_buckets=args.gradsync_buckets,
@@ -270,6 +314,7 @@ def run(argv=None, *, params=None, topo=None, stats=None):
     lost = {int(x) for x in args.lose_chips.split(",") if x != ""}
     stats = {} if stats is None else stats
     stats.setdefault("events", [])
+    stats.setdefault("selections", [])
     stats["restarts"] = 0
     losses = []
     # SIGTERM (preemption): an emergency checkpoint at the next step
@@ -336,9 +381,22 @@ def _attempt(args, cfg, run_cfg, plan, topo, single, dev, params, stats,
     topology).  Returns ``(None, (params, opt_state))`` when the run
     completed or stopped (SIGTERM), or ``(the current lane ranks the
     health ladder condemned, None)`` on RESTART, after the emergency
-    checkpoint committed."""
+    checkpoint committed.
+
+    The timing cache is set up first (``_setup_tuner``: with ``--tune``
+    the probe runs before any model state exists), the fitted constants
+    installed, and only then the step and the state built, so the K/B
+    resolutions the layouts commit to are priced with the same constants
+    as dispatch; each attempt probes its own topology, whose signature a
+    restart changes."""
+    tuner, cache_path = _setup_tuner(args, topo, dev, flags, stats,
+                                     lead=lead)
+    _adopt_fitted_hw(tuner, *((topo.n(), topo.N()) if topo is not None
+                              else (1, 1)), lead=lead)
+    stats["hw"] = get_hw()
     if topo is not None:
-        comm = LaneComm(topo, CommConfig.from_run(run_cfg))
+        comm = LaneComm(topo, dataclasses.replace(
+            CommConfig.from_run(run_cfg), tuner=tuner))
         if args.batch % topo.p():
             raise ValueError(f"global batch {args.batch} not divisible by "
                              f"the {topo.p()} processes of the batch axes")
@@ -482,6 +540,13 @@ def _attempt(args, cfg, run_cfg, plan, topo, single, dev, params, stats,
     finally:
         if health is not None:
             stats["events"].extend(health.events)
+        if comm is not None:
+            stats["selections"].extend(comm.selections)
+    _commit_tuner_misses(cache_path, tuner, flags, lead=lead)
+    if lead and comm is not None and comm.last_selection is not None:
+        sel = comm.last_selection
+        print(f"auto {sel.collective}: {sel.strategy} ({sel.source}) at "
+              f"{sel.payload_bytes} B", flush=True)
     if restart is not None:
         if lead:
             print(f"RESTART at step {done}: emergency checkpoint committed, "
@@ -503,6 +568,137 @@ def _attempt(args, cfg, run_cfg, plan, topo, single, dev, params, stats,
     elif lead and logged:
         print(f"loss {logged[0]:.4f} → {logged[-1]:.4f}  OK")
     return None, (params, opt_state)
+
+
+def _tuning_cache_path(args) -> str:
+    """Where the timing cache lives: ``--tuning-cache`` if given, else
+    beside the checkpoints, else nowhere ("")."""
+    return args.tuning_cache or (
+        os.path.join(args.ckpt, DEFAULT_CACHE_NAME) if args.ckpt else "")
+
+
+def _setup_tuner(args, topo, dev, flags, stats, *, lead):
+    """Restore/probe the timing cache and return ``(Tuner or None, the
+    cache's path)``, as ``repro``'s ``_setup_tuner``.
+
+    The cache rides in the checkpoint directory by default
+    (``--tuning-cache`` overrides), so a resumed run re-ranks with the
+    same measured costs it committed to — measure once, then commit.  A
+    missing or corrupt cache degrades to the closed-form model (the
+    reason printed); with ``--tune`` the probe fills (only) unmeasured
+    cells — the ladder sweep PLUS the persisted cache-miss worklist
+    (payloads a previous run's dispatch asked for but the cache could not
+    answer) — and the lead rank saves the merged table atomically,
+    consuming the worklist.  The cache is the lead's: the lead alone
+    reads and writes the file, and broadcasts its path, table and
+    worklist over ``flags`` (the job's processes), so every rank starts
+    from the same cells whatever file it would see, probes the same
+    cells and holds the same table; the others wait at a barrier while
+    the lead writes.  ``--tune`` needs a started world (``topo``): one
+    process has no collectives to time, and it raises."""
+    if not (args.tune or _tuning_cache_path(args)):
+        return None, ""
+    if args.tune and topo is None:
+        raise ValueError("--tune times the collectives of a started "
+                         "world; run under torchrun (or pass topo=)")
+    box = [None]
+    if lead:
+        path = _tuning_cache_path(args)
+        box = [(path,
+                (load_timing_table_or_none(path) if path else None)
+                or TimingTable(),
+                load_misses(path) if path and args.tune else [])]
+    if flags is not None:
+        dist.broadcast_object_list(box, src=dist.get_global_rank(flags, 0),
+                                   group=flags)
+    cache_path, table, worklist = box[0]
+    if args.tune:
+        t0 = time.perf_counter()
+        probe_cells(topo, device=dev, group=flags, table=table,
+                    ladder=SMOKE_LADDER if args.smoke else DEFAULT_LADDER,
+                    verbose=lead)
+        t1 = time.perf_counter()
+        probed = probe_worklist(topo, worklist, table=table, device=dev,
+                                group=flags, verbose=lead) \
+            if worklist else 0
+        stats["tuning"] = {"ladder_s": t1 - t0,
+                           "worklist_s": time.perf_counter() - t1,
+                           "worklist": probed, "cells": len(table)}
+        if lead and worklist:
+            print(f"tuning worklist: {probed}/{len(worklist)} recorded "
+                  f"misses probed", flush=True)
+        if cache_path:
+            if lead:
+                save_timing_table(cache_path, table)
+                print(f"tuning cache committed: {cache_path} "
+                      f"({len(table)} cells)", flush=True)
+            if flags is not None:
+                dist.barrier(group=flags)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()    # the probe's payloads, before the model
+    return (Tuner(table, device=dev) if len(table) else None), cache_path
+
+
+def _adopt_fitted_hw(tuner, n, N, *, lead) -> None:
+    """Install the timing-cache-fitted HW constants BEFORE step building,
+    as ``repro``'s ``_adopt_fitted_hw``: with a measured table the
+    closed-form cost model prices with constants fitted to it
+    (``tuning.fit_hw``), and the install comes before ``build_train_step``
+    and ``init_lane_train_state`` so the K/B layout resolutions the run
+    (and its checkpoint geometry) commit to are priced with the same
+    constants end to end.  ``run`` restores the previous constants when
+    it ends.
+
+    Unlike ``repro``, the fit takes only the cells of this run's
+    topology (``n`` x ``N``): cells of a topology a restart left behind,
+    or of another card, say nothing of this one.  A table with no such
+    cell, or whose cells leave a level unseen (p = 1 sees no lane level:
+    the fit would clamp its constants to their floors), keeps the
+    constants in force, and says why."""
+    if tuner is None:
+        return
+    sig = tuner.signature(n, N)
+    try:
+        fit = fit_hw(tuner.table, topo_sig=sig)
+    except ValueError as e:
+        if lead:
+            print(f"fitted-HW adoption skipped ({e}); cost model keeps the "
+                  f"shipped constants", flush=True)
+        return
+    if fit.blind:
+        if lead:
+            print(f"fitted-HW adoption skipped (no {sig} cell sees the "
+                  f"{' or '.join(fit.blind)} level); cost model keeps the "
+                  f"shipped constants", flush=True)
+        return
+    set_hw(fit.hw)
+    if lead:
+        print(f"cost-model HW adopted from measured timing cache: "
+              f"{fit.num_cells} cells of {sig}, residual rms "
+              f"{fit.residual_rms_us:.1f}us / max "
+              f"{fit.residual_max_us:.1f}us", flush=True)
+
+
+def _commit_tuner_misses(cache_path, tuner, flags, *, lead) -> None:
+    """Persist the misses dispatch recorded in this attempt to the lead's
+    ``cache_path`` so the next ``--tune`` launch probes exactly those
+    cells (the "commit" half of measure-once-then-commit for payloads
+    the ladder never covered), on the lead rank; the others wait at a
+    barrier, so the next attempt reads the file whole.  A failed write
+    is reported and does not fail a finished run, as in ``repro``."""
+    if not (cache_path and tuner is not None and tuner.misses):
+        return
+    if lead:
+        try:
+            save_timing_table(cache_path, tuner.table, misses=tuner.misses)
+            uniq = len(dict.fromkeys(tuple(m) for m in tuner.misses))
+            print(f"tuning misses committed: {uniq} cells queued for the "
+                  f"next --tune pass ({cache_path})", flush=True)
+        except OSError as e:
+            print(f"WARNING: tuning miss commit failed: {e}",
+                  file=sys.stderr, flush=True)
+    if flags is not None:
+        dist.barrier(group=flags)
 
 
 def _outer_axis(names) -> int:

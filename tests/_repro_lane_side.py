@@ -10,6 +10,7 @@ count=<devices>`` (the test process never sets it).
   python tests/_repro_lane_side.py ckpt OUTDIR GS,GS ARGV...  # 4 devices
   python tests/_repro_lane_side.py quorum IN.npz OUT.npz     # 4 devices
   python tests/_repro_lane_side.py faults CASES.json OUT.json  # 4 devices
+  python tests/_repro_lane_side.py tuning OUT.json CACHE ARGV...  # 4
 
 ``collectives`` runs every case of ``_collective_grid`` through
 ``repro``'s LaneComm on repro's own conformance meshes, ``zero`` its
@@ -25,7 +26,11 @@ full precision (its log lines print 4 decimals); ``ckpt`` runs
 ``LaneComm.grad_sync(strategy="lane_quorum")`` on a (pod 2 × data 2)
 mesh under every 0/1 mask of the 2 pods (``grid.QUORUM_MASKS``); ``faults``
 runs ``repro.launch.train.main`` once per named argv of CASES.json and
-records each run's losses, stdout and the ``ValueError`` it raised.
+records each run's losses, stdout and the ``ValueError`` it raised;
+``tuning`` runs ``repro.tuning.probe_cells`` on a (pod 2 × data 2) mesh
+at ``SMOKE_LADDER`` and records its cells' keys, then
+``repro.launch.train.main`` with ARGV and ``--tuning-cache CACHE`` and
+records its losses and the auto-dispatch selections its step recorded.
 """
 import builtins
 import json
@@ -264,6 +269,36 @@ def faults(cases_path, out_path):
     pathlib.Path(out_path).write_text(json.dumps(out))
 
 
+def tuning(out_path, cache, argv):
+    import repro.launch.train as jtrain
+    from repro.tuning import SMOKE_LADDER, probe_cells
+    mesh = jax.make_mesh((2, 2), ("pod", "data"))
+    topo = LaneTopology(node_axes=("data",), lane_axis="pod")
+    table = probe_cells(mesh, topo, ladder=SMOKE_LADDER, reps=1, warmup=0,
+                        verbose=False)
+    keys = [[e.collective, e.strategy, e.topo_sig, e.bucket]
+            for e in table.entries()]
+    comms, got = [], []
+    build = jtrain.build_train_step_lane
+
+    def capture(*a, **kw):          # the loop's comm, for its selections
+        step, comm = build(*a, **kw)
+        comms.append(comm)
+        return step, comm
+
+    def record(x):                  # train.py's only float(): the loss
+        got.append(builtins.float(x))
+        return got[-1]
+    jtrain.build_train_step_lane = capture
+    jtrain.float = record
+    rc = jtrain.main([*argv, "--tuning-cache", cache, "--log-every", "1"])
+    assert rc == 0, rc
+    sels = [[s.strategy, s.source, s.payload_bytes]
+            for c in comms for s in c.selections]
+    pathlib.Path(out_path).write_text(json.dumps(
+        {"keys": keys, "losses": got, "selections": sels}))
+
+
 if __name__ == "__main__":
     cmd, *rest = sys.argv[1:]
     if cmd == "collectives":
@@ -280,5 +315,7 @@ if __name__ == "__main__":
         quorum(*rest)
     elif cmd == "faults":
         faults(*rest)
+    elif cmd == "tuning":
+        tuning(rest[0], rest[1], rest[2:])
     else:
         train(rest[0], rest[1:])

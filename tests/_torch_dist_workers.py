@@ -750,3 +750,67 @@ def faults_rank(tmp, npz, base, cases):
         res["restarts"] = stats.get("restarts")
         out[name] = res
     return out
+
+
+def tuning_rank(npz, planted, tuned_path, argv):
+    """On a 4-rank world (2 pods x 2), in turn:
+
+      * ``tuning.probe_cells`` at ``SMOKE_LADDER`` on the 2 x 2 topology:
+        this rank's ``to_doc()``;
+      * ``argv`` with ``--gradsync auto --tuning-cache planted`` from the
+        ``repro``-layout weights in ``npz``: losses, the recorded
+        selections ``[(strategy, source, payload bytes), ...]`` and the
+        parameters' digest;
+      * ``argv`` with ``--gradsync <the strategy selected>``: losses and
+        digest;
+      * ``argv`` with ``--gradsync auto --tuning-cache`` the planted file
+        on rank 0 and a file that does not exist on the others: losses,
+        selections and digest (the cache is the lead's, so every rank
+        dispatches on the planted table);
+      * ``argv`` with ``--gradsync auto --tune --tuning-cache
+        tuned_path``: losses, selections and digest, and the cache as this
+        rank reads it after the run.
+
+    Returns a dict of those, the constants the planted run priced with
+    (``stats["hw"]``), and ``get_hw()`` before and after the runs (equal:
+    ``run`` restores the constants a cache installed)."""
+    import torch.distributed as dist
+    from repro_torch.bridge import params_from_repro
+    from repro_torch.configs import resolve
+    from repro_torch.core.costmodel import get_hw
+    from repro_torch.launch.mesh import new_lane_topology
+    from repro_torch.launch.train import params_digest, run
+    from repro_torch.tuning import SMOKE_LADDER, load_timing_table, \
+        probe_cells
+    topo = new_lane_topology(2, 2)
+    hw = get_hw()
+    doc = probe_cells(topo, device="cpu", ladder=SMOKE_LADDER, reps=2,
+                      warmup=1, verbose=False).to_doc()
+    arch = argv[argv.index("--arch") + 1]
+    cfg = resolve(arch, smoke="--smoke" in argv)
+
+    stats = {}
+
+    def train(extra):
+        stats.clear()
+        losses, params, _ = run(
+            argv + extra, params=params_from_repro(load_tree(npz), cfg,
+                                                   device="cpu"),
+            stats=stats)
+        sels = [(s.strategy, s.source, s.payload_bytes)
+                for s in stats["selections"]]
+        return losses, sels, params_digest(params)
+
+    auto = train(["--gradsync", "auto", "--tuning-cache", planted])
+    priced = stats["hw"]
+    fixed = train(["--gradsync", auto[1][-1][0]])
+    rank = dist.get_rank()
+    lead_only = train(["--gradsync", "auto", "--tuning-cache",
+                       planted if rank == 0 else
+                       f"{tuned_path}.absent{rank}"])
+    tuned = train(["--gradsync", "auto", "--tune", "--tuning-cache",
+                   tuned_path])
+    return {"probe": doc, "auto": auto, "fixed": fixed,
+            "lead_only": lead_only, "tuned": tuned,
+            "tuned_cache": load_timing_table(tuned_path).to_doc(),
+            "priced": priced, "hw": (hw, get_hw())}

@@ -217,12 +217,12 @@ def test_unported_cells_name_their_items():
     with pytest.raises(ValueError, match="registered strategies"):
         get_impl("allreduce", "lane_zero9")
     for strategy in ("native", "lane", "lane_pipelined", "lane_int8",
-                     "lane_quorum"):
+                     "lane_quorum", "auto"):
         assert comm.param_layout(strategy) == "replicated"
     assert comm.param_layout("lane_zero1") == "zero1"
     assert comm.param_layout("lane_zero3") == "zero3"
     with pytest.raises(ValueError, match="no param layout"):
-        comm.param_layout("auto")
+        comm.param_layout("lane_zero9")
 
 
 # ---------------------------------------------------------------------------

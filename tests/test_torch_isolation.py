@@ -50,6 +50,19 @@ def test_the_runtime_is_covered():
         "straggler.py", "elastic.py"}
 
 
+def test_the_tuner_is_covered():
+    """Measured-cost tuning and the guideline timing are part of the
+    port, and so of the checks below."""
+    names = set(_modules())
+    assert {f"repro_torch.tuning.{m}" for m in (
+        "table", "store", "fit", "guideline_report", "probe",
+        "tune_smoke")} | {"repro_torch.tuning",
+                          "repro_torch.core.guidelines"} <= names
+    assert {f.name for f in FILES if f.parent.name == "tuning"} == {
+        "__init__.py", "table.py", "store.py", "fit.py",
+        "guideline_report.py", "probe.py", "tune_smoke.py"}
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.name)
 def test_no_jax_or_repro_import(path):
     tree = ast.parse(path.read_text(), filename=str(path))

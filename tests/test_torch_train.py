@@ -379,8 +379,7 @@ def test_remat_dots_and_gradsync_name_their_items(zoo):
         RunConfig(model=tc, remat="some")
     with pytest.raises(ValueError, match="accum_dtype"):
         RunConfig(model=tc, accum_dtype="float16")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        RunConfig(model=tc, gradsync="auto")
+    assert RunConfig(model=tc, gradsync="auto").gradsync == "auto"
     assert RunConfig(model=tc, gradsync="lane_quorum",
                      remat="dots").gradsync == "lane_quorum"
     for strategy in ("lane_zero1", "lane_zero3"):
@@ -417,9 +416,6 @@ def test_train_main_microbatch_and_remat_on_cpu():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--gradsync", "auto"], "item 10"),
-    (["--tune"], "item 10"),
-    (["--tuning-cache", "t.json"], "item 10"),
     (["--model-parallel", "2"], "item 10"),
     (["--expert-parallel"], "item 10"),
     (["--ep-blocks", "2"], "item 10"),
@@ -429,6 +425,27 @@ def test_train_main_unported_flags_raise(flags, item):
         train.main(["--arch", "llama3.2-3b", "--smoke", "--steps", "1",
                     "--batch", "2", "--seq", "8", "--device", "cpu",
                     *flags])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--gradsync", "auto"],
+    ["--tuning-cache", "{tmp}"],
+    ["--tune", "--tuning-cache", "{tmp}"],
+], ids=lambda f: " ".join(a for a in f if a != "{tmp}"))
+def test_train_main_tuning_flags_act(flags, tmp_path):
+    """The tuning flags on one process, where no gradient sync runs:
+    ``--gradsync auto`` and a cache leave the plain step's losses as they
+    are, and ``--tune``, with no world's collectives to time, raises.
+    (Across ranks: tests/test_torch_tuning_dist.py.)"""
+    argv = ["--arch", "llama3.2-3b", "--smoke", "--steps", "2", "--batch",
+            "2", "--seq", "8", "--device", "cpu"]
+    flags = [a.format(tmp=tmp_path / "c.json") for a in flags]
+    if "--tune" in flags:
+        with pytest.raises(ValueError, match="started world"):
+            train.main(argv + flags)
+        assert not (tmp_path / "c.json").exists()
+    else:
+        assert train.main(argv + flags) == train.main(argv)
 
 
 RUNTIME = ["--arch", "llama3.2-3b", "--smoke", "--steps", "3", "--batch",
