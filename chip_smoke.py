@@ -202,17 +202,43 @@ and the script exits non-zero:
      table's argmin at the payload, C's misses consumed); and
      ``--gradsync <that strategy>`` (the losses of the second run, bit for
      bit); K1 28 a step in each; after the phase the cost model's
-     constants are those from before it.
+     constants are those from before it;
+ 13. tensor and expert parallelism (``models/parallel.py``, ``mlp_tp``,
+     ``moe_block_ep``, the ``moe_route`` cells, the ep ``lane_zero3``
+     state and checkpoint) on phase 12's one-rank world and 1 x 1
+     topology, its checkpoint directory under build/ removed at the end,
+     also on failure:
+     (a) ``mlp_tp`` and ``mlp_tp_reduce`` over the topology's model group
+     (tp = 1: NCCL refuses two ranks on one card) at llama3.2-3b's MLP
+     (d 3072, f 8192), bf16, 4 x 1024 tokens, forward and backward against
+     ``mlp``: max |delta| of the output and every gradient (gate 2e-2 of
+     the largest value), and each one's device us;
+     (b) granite-moe-3b-a800m at full width, bf16, 4 x 1024 tokens, 3
+     steps each through ``launch.train.run``: ``--gradsync lane`` and
+     ``--gradsync lane_zero3`` (the gathered MoE), ``--gradsync lane
+     --expert-parallel`` and ``--gradsync lane_zero3 --expert-parallel
+     --ep-blocks 2``, AdamW unclipped (as 9b), each state freed before
+     the next: losses finite,
+     K1 32 a step, the forward routes 2 · 32 · ep_blocks a step, each EP
+     run's losses within 1e-6 of its layout's gathered run's at every
+     step; step ms, peak and the dropped share printed;
+     (c) granite-moe-3b-a800m at full width cut to 2 layers, bf16, 1 x 256:
+     ``--gradsync lane_zero3 --expert-parallel --steps 3 --ckpt D
+     --ckpt-every 2`` (the ep layout), step 3 removed, then ``--gradsync
+     lane``, resumed at step 2 into the replicated layout through the
+     canonical form: its step-3 loss within 1e-6 of the uninterrupted
+     run's.
 
 Both kernels choose by dtype inside their C entry point: bf16 (the
 serving and training paths) runs on the tensor cores, f32 on the CUDA
 cores.  The line before the last is a JSON object with K1's and K2's
-numbers (launches per path, the training runs and phases 10, 11 and 12
+numbers (launches per path, the training runs and phases 10 to 13
 included);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import filecmp
 import json
@@ -1913,8 +1939,8 @@ def phase_lane_cpu() -> None:
 
 
 def phase_lanes(name, first_loss, served) -> dict:
-    """Phases 8, 9, 10, 11 and 12 on one NCCL world (8d on the CPU after
-    it)."""
+    """Phases 8, 9, 10, 11, 12 and 13 on one NCCL world (8d on the CPU
+    after it)."""
     topo, init = timed("8a lane world", phase_lane_world)
     try:
         timed("8b lane conformance", phase_lane_conformance, topo)
@@ -1930,6 +1956,9 @@ def phase_lanes(name, first_loss, served) -> dict:
         torch.cuda.empty_cache()
         launches.update(timed("12 measured-cost tuning", phase_tuning,
                               topo, name))
+        torch.cuda.empty_cache()
+        launches.update(timed("13 tensor and expert parallelism",
+                              phase_tp_ep, topo, name))
     finally:
         dist.destroy_process_group()
         init.unlink(missing_ok=True)
@@ -2984,6 +3013,260 @@ def phase_tuning(topo, name) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: tensor and expert parallelism on the one-rank world
+# ---------------------------------------------------------------------------
+
+TP_ARCH = "llama3.2-3b"           # 13a: its MLP, d 3072, f 8192
+EP_ARCH = "granite-moe-3b-a800m"  # 13b, 13c: 40 experts top-8, d_ff 512
+EP_STEPS = 3
+# 13b's runs: (label, flags, the gathered run an EP run is held to),
+# remat none (each peaks under 70 GiB), AdamW with no clipping (the clip
+# norm is still computed): the gathered lane_zero3 state sums the
+# experts' squares inside its stripes, the EP one apart, so with the clip
+# their norms part by an ulp, and from step 2 their losses (7.4e-6 at
+# step 2 and 2.3e-4 at step 3, PERF.md §6); without it they are
+# equal, as phase 9b's layouts are
+EP_RUNS = (("lane", ["--gradsync", "lane"], None),
+           ("lane_zero3", ["--gradsync", "lane_zero3"], None),
+           ("lane ep", ["--gradsync", "lane", "--expert-parallel"], "lane"),
+           ("lane_zero3 ep b2", ["--gradsync", "lane_zero3",
+                                 "--expert-parallel", "--ep-blocks", "2"],
+            "lane_zero3"))
+# the CPU tests' tolerance of EP against the gathered MoE (f32, 8 gloo
+# ranks: tests/test_torch_train_tp_ep.py), relative
+EP_TOL = 1e-6
+EP_CUT = "granite-moe-3b-a800m-cut"
+
+
+def _tp_root() -> pathlib.Path:
+    return pathlib.Path(__file__).resolve().parent / "build" / "tp_ep"
+
+
+def phase_tp_mlp(topo, name) -> None:
+    """13a: ``mlp_tp`` and ``mlp_tp_reduce`` over the model group of the
+    1 x 1 topology (tp = 1: a one-rank NCCL group; NCCL refuses two ranks
+    on one card) at TP_ARCH's MLP, bf16, TRAIN_BATCH x TRAIN_SEQ tokens,
+    seed-0 weights, forward and backward against ``mlp`` on the same
+    inputs: max |delta| of the output and of every gradient (mlp_tp: 0
+    expected), gated at TOL[bf16] of the largest reference magnitude;
+    device us of each (forward and backward) beside mlp's."""
+    from repro_torch.models import layers as L
+    cfg = resolve(TP_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = L.init_mlp(cfg, generator=gen, device=torch.device("cuda"))
+    x = L.dense_init((TRAIN_BATCH, TRAIN_SEQ, cfg.d_model), torch.bfloat16,
+                     generator=gen, device=torch.device("cuda"), scale=1.0)
+    dy = L.dense_init(x.shape, torch.bfloat16, generator=gen,
+                      device=torch.device("cuda"), scale=1.0)
+    comm = LaneComm(topo.model)
+    names = ("x", "w_up", "w_gate", "w_down")
+    fns = {"mlp": lambda q, h: L.mlp(q, h, cfg),
+           "mlp_tp": lambda q, h: L.mlp_tp(q, h, cfg, comm=comm),
+           "mlp_tp_reduce": lambda q, h: L.mlp_tp_reduce(q, h, cfg,
+                                                         comm=comm)}
+
+    def fwd_bwd(fn):
+        leaves = [t.detach().requires_grad_(True)
+                  for t in (x, p["w_up"], p["w_gate"], p["w_down"])]
+        y = fn(dict(zip(names[1:], leaves[1:])), leaves[0])
+        return [y.detach(), *torch.autograd.grad(y, leaves, dy)]
+
+    want = fwd_bwd(fns["mlp"])
+    us = {}
+    for label, fn in fns.items():
+        us[label], _ = device_us(lambda fn=fn: fwd_bwd(fn), reps=5,
+                                 warmup=1)
+        if label == "mlp":
+            continue
+        got = fwd_bwd(fn)
+        errs = {k: float((a.float() - b.float()).abs().max())
+                for k, a, b in zip(("y", *(f"d{n}" for n in names)), got,
+                                   want)}
+        scale = {k: float(b.float().abs().max()) for k, b in
+                 zip(errs, want)}
+        log("tp", f"{name} | {label} at tp=1, {TP_ARCH}'s MLP d "
+            f"{cfg.d_model} f {cfg.d_ff}, bf16, {TRAIN_BATCH} x "
+            f"{TRAIN_SEQ}: max |delta| against mlp "
+            f"{ {k: v for k, v in errs.items()} } (gate "
+            f"{TOL[torch.bfloat16]:g} of the largest |value|)")
+        bad = [k for k in errs if not errs[k] <= TOL[torch.bfloat16]
+               * scale[k]]
+        if bad:
+            raise RuntimeError(f"{label}: {bad} past the gate: {errs}")
+    log("tp", f"{name} | forward + backward device us: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in us.items()))
+
+
+@contextlib.contextmanager
+def unclipped():
+    """Within ``with``: ``launch.train`` builds AdamW with no clipping."""
+    train.AdamWConfig = lambda **kw: AdamWConfig(
+        **kw, clip_norm=float("inf"))
+    try:
+        yield
+    finally:
+        train.AdamWConfig = AdamWConfig
+
+
+class EpWatch:
+    """Within ``with``: every moe dispatch's assignments and drops (``moe.
+    _dispatch_buffer`` wrapped, summed on the card) and the forward
+    routing all-to-alls started (``moe._route_start`` wrapped: dispatch
+    and combine; the backward's reverse routes are not counted)."""
+
+    def __enter__(self):
+        self.dispatch = moe_mod._dispatch_buffer
+        self.route_start = moe_mod._route_start
+        self.kept, self.total, self.routes = [], 0, 0
+
+        def dispatch(p, x, cfg):
+            out = self.dispatch(p, x, cfg)
+            self.kept.append(out[2].sum())
+            self.total += out[2].numel()
+            return out
+
+        def route_start(*args, **kw):
+            self.routes += 1
+            return self.route_start(*args, **kw)
+        moe_mod._dispatch_buffer = dispatch
+        moe_mod._route_start = route_start
+        return self
+
+    def __exit__(self, *exc):
+        moe_mod._dispatch_buffer = self.dispatch
+        moe_mod._route_start = self.route_start
+
+    def dropped(self) -> float:
+        return 1.0 - float(torch.stack(self.kept).sum()) / self.total
+
+
+def phase_ep_train(topo, name) -> dict:
+    """13b: EP_ARCH at full width, bf16, TRAIN_BATCH x TRAIN_SEQ tokens,
+    EP_STEPS steps each of EP_RUNS through ``launch.train.run`` on the
+    1 x 1 topology (the gathered MoE under lane and lane_zero3, then
+    expert-parallel under lane, then expert-parallel lane_zero3 with
+    ep_blocks 2: C = 256 splits in two); each run's state freed before
+    the next; AdamW unclipped (EP_RUNS).  Gates: every loss finite; K1
+    once per layer and forward; 2·L·ep_blocks forward routes per forward
+    under EP and none gathered; every EP run's losses within EP_TOL of
+    its own layout's gathered run's at every step (lane_zero3's f32
+    masters keep the sub-ulp updates the replicated bf16 weights drop,
+    phase 9b, so it is held to the gathered lane_zero3 run).  Printed:
+    step ms (median of steps 2-3), peak GiB, routes and K1 per step, the
+    dropped share."""
+    cfg = resolve(EP_ARCH)
+    Lc = cfg.num_layers
+    base = ["--arch", EP_ARCH, "--steps", str(EP_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--log-every", "1",
+            "--device", "cuda"]
+    out, runs = {}, {}
+    for label, flags, _ in EP_RUNS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with StepClock(trace_at=10 ** 9) as clock, EpWatch() as w, \
+                unclipped():
+            fa.launches = k2.launches = 0
+            losses = train.run(base + flags, topo=topo)[0]
+            torch.cuda.synchronize()
+            launches = {"flash_attention": fa.launches, "ssd": k2.launches}
+            routes, dropped = w.routes, w.dropped()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        blocks = int(flags[flags.index("--ep-blocks") + 1]) \
+            if "--ep-blocks" in flags else 1
+        want_k1 = Lc * EP_STEPS
+        want_routes = 2 * Lc * blocks * EP_STEPS \
+            if "--expert-parallel" in flags else 0
+        ms = float(np.median(clock.seconds[1:])) * 1e3
+        runs[label] = losses
+        out[f"ep {label}"] = launches
+        log("ep", f"{name} | {EP_ARCH} {' '.join(flags)}, bf16, "
+            f"{TRAIN_BATCH} x {TRAIN_SEQ}: losses {losses}; step ms "
+            f"{[round(x * 1e3, 1) for x in clock.seconds]} (median of "
+            f"steps 2-{EP_STEPS} {ms:.1f} ms); peak {peak:.2f} GiB; "
+            f"moe_route {routes / EP_STEPS:.0f} a step (want "
+            f"{want_routes // EP_STEPS}); K1 "
+            f"{launches['flash_attention'] / EP_STEPS:.0f} a step (want "
+            f"{want_k1 // EP_STEPS}); dropped share {dropped:.4f}")
+        if len(losses) != EP_STEPS or not all(np.isfinite(losses)) \
+                or launches != {"flash_attention": want_k1, "ssd": 0} \
+                or routes != want_routes:
+            raise RuntimeError(f"{label}: losses {losses}, launches "
+                               f"{launches}, routes {routes}")
+        torch.cuda.empty_cache()
+    for label, _, ref in EP_RUNS:
+        if ref is None:
+            continue
+        rel = [abs(a - b) / abs(b) for a, b in zip(runs[label], runs[ref])]
+        log("ep", f"{name} | {label} against the gathered {ref} run: "
+            f"relative |delta| per step {[f'{r:.2e}' for r in rel]} "
+            f"(gated at {EP_TOL:g})")
+        if max(rel) > EP_TOL:
+            raise RuntimeError(f"{label}: {runs[label]} against the "
+                               f"gathered {ref} {runs[ref]}")
+    return out
+
+
+def phase_ep_ckpt(topo, root, name) -> dict:
+    """13c: EP_ARCH at full width cut to CHECK_LAYERS layers (EP_CUT),
+    bf16, 1 x CHECK_T tokens: ``--gradsync lane_zero3 --expert-parallel
+    --steps 3 --ckpt D --ckpt-every 2`` (the ep layout saved at steps 2
+    and 3), step 3 removed, then ``--gradsync lane --steps 3``: resumed
+    at step 2 into the replicated layout through the canonical form, its
+    loss at step 3 within EP_TOL of the uninterrupted ep run's."""
+    from repro_torch.checkpoint import latest_step, verify_checkpoint
+    from repro_torch.configs.base import register
+    cut = lambda: dataclasses.replace(resolve(EP_ARCH),
+                                      num_layers=CHECK_LAYERS)
+    register(EP_CUT, cut, cut)
+    d = root / "ep"
+    argv = ["--arch", EP_CUT, "--batch", "1", "--seq", str(CHECK_T),
+            "--log-every", "1", "--device", "cuda", "--ckpt", str(d),
+            "--ckpt-every", "2", "--steps", "3"]
+    fa.launches = k2.launches = 0
+    (ep, _, _), _, _ = _run_logged(argv + ["--gradsync", "lane_zero3",
+                                           "--expert-parallel"], topo)
+    verify_checkpoint(str(d), 2)
+    man = json.loads((d / "step_2" / "manifest.json").read_text())
+    shutil.rmtree(d / "step_3")
+    (resumed, _, _), out, _ = _run_logged(argv + ["--gradsync", "lane"],
+                                          topo)
+    launches = {"flash_attention": fa.launches, "ssd": k2.launches}
+    rel = abs(resumed[0] - ep[2]) / abs(ep[2]) if resumed else float("inf")
+    log("ep", f"{name} | {EP_CUT}: ep lane_zero3 losses {ep}, layout "
+        f"{man['layout']}; resumed under lane at step "
+        f"{latest_step(str(d))}: step 3 loss {resumed} against "
+        f"{ep[2]!r}, relative |delta| {rel:.2e} (gate {EP_TOL:g}); "
+        f"launches {launches}")
+    if not man["layout"].get("ep") or "resumed from step 2" not in out \
+            or rel > EP_TOL:
+        raise RuntimeError(f"the ep checkpoint: layout {man['layout']}, "
+                           f"resumed {resumed}, uninterrupted {ep}")
+    return {"ep ckpt": launches}
+
+
+def phase_tp_ep(topo, name) -> dict:
+    """Phase 13; its checkpoint directory (under build/, ignored by git)
+    is removed at the end, also on failure."""
+    root = _tp_root()
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    try:
+        with torch.enable_grad():
+            timed("13a TP MLP", phase_tp_mlp, topo, name)
+            torch.cuda.empty_cache()
+            launches = timed("13b EP at full width", phase_ep_train, topo,
+                             name)
+            torch.cuda.empty_cache()
+            launches.update(timed("13c the ep checkpoint", phase_ep_ckpt,
+                                  topo, root, name))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        log("time", f"phase 13: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def timed(label, fn, *args, **kw):
     t0 = time.perf_counter()
     out = fn(*args, **kw)
@@ -3041,8 +3324,9 @@ def main() -> int:
                 f"train {arch}", phase_train, resolve(arch), name)
             first_loss[arch] = losses[0]
             torch.cuda.empty_cache()
-    launches.update(timed("lane collectives, ZeRO, checkpoints, faults and "
-                          "tuning", phase_lanes, name, first_loss, served))
+    launches.update(timed("lane collectives, ZeRO, checkpoints, faults, "
+                          "tuning, TP and EP", phase_lanes, name,
+                          first_loss, served))
     log("time", f"total: {time.perf_counter() - t_start:.1f} s")
     by_path = {k: {a: n[k] for a, n in launches.items()}
                for k in ("flash_attention", "ssd")}

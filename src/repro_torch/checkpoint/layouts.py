@@ -131,23 +131,22 @@ class Zero3CheckpointLayout(CheckpointLayout):
     layer_elems).  The ``extras`` pseudo-layer has its own geometry
     (``extra_elems`` / ``extra_blocks``, master (1, Be, p, se)).
 
-    ``ep``: the expert-parallel flavour, whose expert leaves live outside
-    the flat stack.  It is part of ``repro``'s manifest and is recorded
-    and checked here, but expert parallelism is not ported
-    (ROADMAP.md, Queue 1, item 10): ``ep=True`` raises."""
+    ``ep``: the expert-parallel flavour.  Its MoE expert FFN leaves live
+    outside the flat stack, under an ``experts`` params / moments
+    subtree whose natural (L, E, ...) shapes are canonical (passed through
+    as they are: neither ``_in_blocks`` nor ``_in_extras`` matches them).
+    The flag changes ``layer_elems``, so it is recorded in the manifest
+    and checked on restore like the rest of the canonical geometry."""
 
     kind = "zero3"
 
     def __init__(self, num_layers: int, layer_elems: int, num_blocks: int,
                  num_shards: int, extra_elems: int = 0,
                  extra_blocks: int = 0, ep: bool = False):
-        if ep:
-            raise NotImplementedError(
-                "expert parallelism under lane_zero3 is not ported yet "
-                "(ROADMAP.md, Queue 1, item 10 (TP/EP))")
         if min(num_layers, layer_elems, num_blocks, num_shards) < 1:
             raise ValueError((num_layers, layer_elems, num_blocks,
                               num_shards))
+        self.ep = bool(ep)
         if (extra_elems > 0) != (extra_blocks > 0):
             raise ValueError((extra_elems, extra_blocks))
         self.num_layers = int(num_layers)                  # L
@@ -180,16 +179,19 @@ class Zero3CheckpointLayout(CheckpointLayout):
         if self.extra_elems:
             entry["extra_elems"] = self.extra_elems
             entry["extra_blocks"] = self.extra_blocks
+        if self.ep:
+            entry["ep"] = True
         return entry
 
     def check_manifest(self, entry: dict) -> None:
         super().check_manifest(entry)
-        if bool(entry.get("ep", False)):
+        if bool(entry.get("ep", False)) != self.ep:
             raise ValueError(
-                "zero3 checkpoint ep=True but the restoring layout has "
-                "ep=False; an expert-parallel checkpoint restores through "
-                "the canonical form, and expert parallelism is not ported "
-                "(ROADMAP.md, Queue 1, item 10)")
+                f"zero3 checkpoint ep={bool(entry.get('ep', False))} but "
+                f"the restoring layout has ep={self.ep}; an expert-"
+                f"parallel flavor change restores through the canonical "
+                f"form (launch.steps.restore_lane_train_state), not the "
+                f"same-layout fast path")
         for field in ("num_layers", "layer_elems", "extra_elems"):
             want = entry.get(field, 0 if field == "extra_elems"
                              else getattr(self, field))

@@ -51,14 +51,7 @@ class CommConfig:
                 f"unknown compression {self.compression!r}; "
                 f"have {_COMPRESSIONS}")
         if self.strategy != "auto":
-            from .registry import (has_impl, registered_collectives,
-                                   unported_item)
-            item = unported_item("grad_sync", self.strategy)
-            if item is not None and not has_impl("grad_sync",
-                                                 self.strategy):
-                raise NotImplementedError(
-                    f"strategy {self.strategy!r} is not ported yet "
-                    f"({item})")
+            from .registry import has_impl, registered_collectives
             if not any(has_impl(c, self.strategy)
                        for c in registered_collectives()):
                 raise ValueError(

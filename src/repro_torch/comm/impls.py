@@ -26,10 +26,12 @@ Registration legend per collective:
   kv_splice        the serving KV distribution into a slot-sharded
                    cache: a mask-to-root all-reduce (native) or the lane
                    bcast (lane), then the local splice
-
-The cells of a later ROADMAP item (``moe_route``: item 10) stay
-unregistered; resolving one raises ``NotImplementedError`` naming its
-item (``registry.UNPORTED``).
+  moe_route        the MoE token-routing all-to-all (expert dispatch and
+                   combine): the one-shot all-to-all (native) or the
+                   §3.5 lane decomposition (lane); ``async_op=True``
+                   starts it and returns a handle whose ``wait()`` gives
+                   the result (``models.moe.moe_block_ep`` pipelines its
+                   capacity blocks with it)
 """
 from __future__ import annotations
 
@@ -143,6 +145,77 @@ def _a2a_native(comm, x):
                feasible=_div_p)
 def _a2a_lane(comm, x):
     return C.alltoall_lane(x, comm.topo)
+
+
+# ---------------------------------------------------------------------------
+# moe_route: the token-routing all-to-all of expert parallelism
+# ---------------------------------------------------------------------------
+#
+# Its own collective name, not an alias of alltoall, so that the tuner
+# measures it at routing payloads and auto commits a routing choice; the
+# exchange and the cost model are the §3.5 all-to-all's.  At p = 1 with no
+# started world (one process) the route is the identity.
+
+class _RouteWork:
+    """A started ``moe_route``: ``wait()`` returns its output (the lane
+    variant runs its node hop there, after the lane hop's wait)."""
+
+    def __init__(self, finish, work=None):
+        self._finish, self._work = finish, work
+
+    def wait(self):
+        if self._work is not None:
+            self._work.wait()
+            self._work = None
+        return self._finish()
+
+
+def _routed(x, async_op, finish, work=None):
+    w = _RouteWork(finish, work)
+    return w if async_op else w.wait()
+
+
+def _no_world(topo) -> bool:
+    return topo.p() == 1 and not dist.is_initialized()
+
+
+@register_impl("moe_route", "native", cost=costs.native_cost("alltoall"),
+               feasible=_div_p)
+def _moe_route_native(comm, x, *, async_op=False):
+    """One all-to-all over the whole communicator (the §3.5 direct
+    algorithm)."""
+    topo = comm.topo
+    C._divisible(x.shape[0], topo.p(), "p")
+    if _no_world(topo):
+        return _routed(x, async_op, x.clone)
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    work = dist.all_to_all_single(out, x, group=topo.group,
+                                  async_op=async_op)
+    return _routed(x, async_op, lambda: out, work)
+
+
+@register_impl("moe_route", "lane", cost=costs.lane_cost("alltoall"),
+               feasible=_div_p)
+def _moe_route_lane(comm, x, *, async_op=False):
+    """The decomposed routing all-to-all (``alltoall_lane``): the lane hop
+    (started, and all that ``async_op`` leaves running), then the node
+    hop."""
+    topo = comm.topo
+    n, N = topo.sizes()
+    C._divisible(x.shape[0], n * N, "p")
+    if _no_world(topo):
+        return _routed(x, async_op, x.clone)
+    m = x.shape[0] // (n * N)
+    x = x.contiguous()
+    y = torch.empty_like(x)                       # (src_j, dest_i, m)
+    work = dist.all_to_all_single(y, x, group=topo.lane_group,
+                                  async_op=async_op)
+
+    def finish():
+        z = C._a2a(C._swap01(y, N, n, m), topo.node_group)
+        return C._swap01(z, n, N, m)
+    return _routed(x, async_op, finish, work)
 
 
 @register_impl("scan", "native", cost=costs.cost_native_scan)

@@ -5,8 +5,8 @@ factorization (:class:`~repro_torch.core.lane.LaneTopology`, its process
 groups), the tuning surface (:class:`~repro_torch.comm.config.CommConfig`)
 and the collective surface — ``allreduce``/``reduce_scatter``/
 ``allgather``/``bcast``/``alltoall``/``reduce``/``gather``/``scatter``/
-``scan`` plus the training collectives ``grad_sync`` and
-``prefetch_allgather``.  Every method
+``scan``, the routing all-to-all ``moe_route``, and the training
+collectives ``grad_sync`` and ``prefetch_allgather``.  Every method
 resolves through the implementation registry
 (:mod:`~repro_torch.comm.registry`); ``strategy="auto"`` ranks the
 registered implementations with the §3/§5 cost model and records the
@@ -203,8 +203,14 @@ class LaneComm:
         return self._dispatch("scan", x, strategy, **kw)
 
     def moe_route(self, x, *, strategy: Optional[str] = None, **kw):
-        """Token-routing alltoall; ROADMAP.md item 10 ports it."""
-        return self._dispatch("moe_route", x, strategy or "lane", **kw)
+        """Token-routing all-to-all (MoE expert dispatch and combine): the
+        exchange of :meth:`alltoall`, destination-rank blocks in and
+        source-rank blocks out, registered as its own collective so that
+        the tuner prices it at routing payloads and selections tell
+        routing traffic apart.  ``async_op=True`` returns a handle whose
+        ``wait()`` gives the result.  The caller is
+        :func:`repro_torch.models.moe.moe_block_ep`."""
+        return self._dispatch("moe_route", x, strategy, **kw)
 
     # -- composite training collectives ----------------------------------
     def grad_sync(self, grads, *, strategy: Optional[str] = None,

@@ -1,9 +1,6 @@
 """The collective-implementation registry behind :class:`~repro_torch.comm.LaneComm`.
 
-Counterpart of ``repro.comm.registry``, the same table and rules.  The
-cells ``repro`` registers that the port has not ported yet are listed in
-``UNPORTED``: resolving one raises ``NotImplementedError`` naming its
-ROADMAP.md item instead of calling it unknown.
+Counterpart of ``repro.comm.registry``, the same table and rules.
 
 The paper's decomposition gives every collective a *family* of correct
 implementations (native one-shot, full-lane mock-up, §5 pipelined, …).
@@ -30,23 +27,8 @@ from typing import Callable, Optional
 
 __all__ = [
     "ImplEntry", "register_impl", "get_impl", "has_impl",
-    "strategies_for", "registered_collectives", "iter_impls", "UNPORTED",
+    "strategies_for", "registered_collectives", "iter_impls",
 ]
-
-_ITEM = "ROADMAP.md, Queue 1, item"
-
-#: (collective, strategy) -> the ROADMAP item that ports it; "*" stands
-#: for every strategy of the collective.
-UNPORTED = {
-    ("moe_route", "*"): f"{_ITEM} 10 (TP/EP)",
-}
-
-
-def unported_item(collective: str, strategy: str):
-    """The ROADMAP item of a cell ``repro`` has and the port has not yet,
-    or None."""
-    return UNPORTED.get((collective, strategy)) \
-        or UNPORTED.get((collective, "*"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,13 +96,7 @@ def register_impl(collective: str, strategy: str, *,
 
 
 def get_impl(collective: str, strategy: str) -> ImplEntry:
-    """Resolve one registration; unknown names list what IS registered,
-    and a cell still to be ported names its ROADMAP item."""
-    item = unported_item(collective, strategy)
-    if item is not None and strategy not in _REGISTRY.get(collective, {}):
-        raise NotImplementedError(
-            f"{collective!r} strategy {strategy!r} is not ported yet "
-            f"({item})")
+    """Resolve one registration; unknown names list what IS registered."""
     table = _REGISTRY.get(collective)
     if not table:
         raise ValueError(

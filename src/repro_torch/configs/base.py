@@ -4,9 +4,10 @@ The port's own copy of ``repro.configs.base`` (``ModelConfig``,
 ``ShapeConfig``, ``SHAPES`` and ``register``/``resolve``/``all_archs``),
 kept field for field so both packages resolve the same numbers.  Every
 arch module registers a ``ModelConfig`` with the published numbers plus a
-reduced ``smoke()`` variant of the same family.  ``RunConfig`` holds only
-the training knobs the port honours so far (``repro``'s has also the ZeRO
-and parallelism knobs, ROADMAP.md Queue 1 items 9-10).
+reduced ``smoke()`` variant of the same family.  ``RunConfig`` holds
+the training knobs of ``repro``'s that the port honours (the dry-run
+planner's ``fsdp``, ``plan``, ``scan_layers`` and ``decode_seq_shard``
+have no counterpart here).
 """
 from __future__ import annotations
 
@@ -156,7 +157,14 @@ class RunConfig:
     backward (the step builder refuses it together with -1, as
     ``repro``'s does).  ``microbatch``: gradient-accumulation
     microbatches per step (0 = off).  ``accum_dtype``: their
-    accumulator, ``"float32"`` or ``"bfloat16"``."""
+    accumulator, ``"float32"`` or ``"bfloat16"``.  ``model_parallel``:
+    the tensor-parallel degree over the world's model axis (the MLP's
+    activation collectives, ``models.layers.mlp_tp``; 1 = off; not with
+    ``lane_zero1`` or ``lane_quorum``).  ``expert_parallel``: the MoE
+    experts split over the batch ranks, the tokens routed by the
+    ``moe_route`` all-to-all (``models.moe.moe_block_ep``; not with
+    ``lane_quorum``); ``ep_blocks``: the capacity blocks its dispatch is
+    pipelined over (1 = sequential)."""
     model: ModelConfig
     remat: str = "none"
     gradsync: str = "native"
@@ -165,6 +173,9 @@ class RunConfig:
     fsdp_regather: bool = False
     microbatch: int = 0
     accum_dtype: str = "float32"
+    model_parallel: int = 1
+    expert_parallel: bool = False
+    ep_blocks: int = 1
 
     def __post_init__(self):
         if self.accum_dtype not in ("float32", "bfloat16"):
@@ -177,22 +188,38 @@ class RunConfig:
         if self.microbatch < 0:
             raise ValueError(f"microbatch must be >= 0, got "
                              f"{self.microbatch}")
-        # which strategies are ported is the registry's to say
-        from repro_torch.comm.registry import (has_impl, strategies_for,
-                                               unported_item)
+        from repro_torch.comm.registry import has_impl, strategies_for
         # "auto" is meta: per-call dispatch, tuned
         if self.gradsync != "auto" \
                 and not has_impl("grad_sync", self.gradsync):
-            item = unported_item("grad_sync", self.gradsync)
-            if item is not None:
-                raise NotImplementedError(
-                    f"gradsync={self.gradsync!r} is not ported yet "
-                    f"({item})")
             raise ValueError(f"unknown gradsync {self.gradsync!r}; have "
                              f"{strategies_for('grad_sync')}")
         if self.gradsync_buckets < 0:
             raise ValueError(f"gradsync_buckets must be >= 0, got "
                              f"{self.gradsync_buckets}")
+        if self.model_parallel < 1:
+            raise ValueError(
+                f"model_parallel must be >= 1, got {self.model_parallel}")
+        if self.ep_blocks < 1:
+            raise ValueError(
+                f"ep_blocks must be >= 1, got {self.ep_blocks}")
+        if self.model_parallel > 1 \
+                and self.gradsync in ("lane_zero1", "lane_quorum"):
+            # zero1's bucket-major flat shard has no model-axis assembly
+            # mask, and the quorum rescale assumes batch-only axes
+            raise ValueError(
+                f"model_parallel > 1 is not supported with gradsync="
+                f"{self.gradsync!r} (use native/lane/lane_zero3)")
+        if self.expert_parallel:
+            if getattr(self.model, "num_experts", 0) < 1:
+                raise ValueError(
+                    f"expert_parallel needs a MoE model (family "
+                    f"{self.model.family!r} has no experts)")
+            if self.gradsync == "lane_quorum":
+                # a masked pod still sits on the routing all-to-all
+                raise ValueError(
+                    "expert_parallel is not supported with "
+                    "gradsync='lane_quorum'")
 
 
 # ---------------------------------------------------------------------------

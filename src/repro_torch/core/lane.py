@@ -35,11 +35,13 @@ class LaneTopology:
     node_ranks: world ranks of this node's processes, by node rank.
     lane_ranks: world ranks of this lane's processes, by lane rank.
     ranks: world ranks of the whole communicator, by global rank.
+    model: the topology of this process's model group (``repro``'s model
+        axis, the tensor-parallel ranks): n = 1, N = the replicas, or None.
     """
 
     def __init__(self, n: int, N: int, *, lane_rank: int, node_rank: int,
                  node_group, lane_group, group, node_ranks, lane_ranks,
-                 ranks):
+                 ranks, model=None):
         if len(node_ranks) != n or len(lane_ranks) != N \
                 or len(ranks) != n * N:
             raise ValueError(
@@ -52,6 +54,7 @@ class LaneTopology:
         self.node_ranks = tuple(node_ranks)
         self.lane_ranks = tuple(lane_ranks)
         self.ranks = tuple(ranks)
+        self.model = model
 
     # -- sizes and coordinates (the method names of repro's LaneTopology) -
     def n(self) -> int:

@@ -15,12 +15,14 @@ level ``data``.  Each ``model`` index gets its own copy of the groups.
     CUDA device, ``gloo`` for the CPU — chosen by the device asked for,
     never as a fallback.  Rank and world size come from ``torchrun``'s
     ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK`` or from the arguments.
-  * :func:`mesh_shape` is ``make_mesh_auto``'s rule, with its messages.
+  * :func:`mesh_shape` is ``make_mesh_auto``'s rule, with its messages
+    (``tp`` pins the model axis).
   * :func:`new_lane_topology` makes every node group and every lane group
     on every process, in one order (``dist.new_subgroups_by_enumeration``;
     NCCL hangs otherwise) and returns this process's topology; with
     ``lanes`` it makes the survivors' topology after an elastic shrink
-    (``runtime.elastic``), on the survivors alone.
+    (``runtime.elastic``), on the survivors alone.  Each process's model
+    group (its tensor-parallel peers) comes with it, as ``topology.model``.
   * :func:`spawn` runs a function on a world of local processes (gloo on
     the CPU), for tests and the CPU rehearsal of multi-rank training.
 """
@@ -99,11 +101,13 @@ def resolve_pods(pods: int, gradsync: str = "native",
     return 1
 
 
-def mesh_shape(n: int, batch: int = 1 << 30, pods: int = 1):
-    """``(pods, d, m)`` for ``n`` processes: the widest data axis d that
-    still divides ``batch``, ``repro``'s ``make_mesh_auto`` rule (tp = 1)
-    and its error messages."""
+def mesh_shape(n: int, batch: int = 1 << 30, pods: int = 1, tp: int = 1):
+    """``(pods, d, m)`` for ``n`` processes, ``repro``'s ``make_mesh_auto``
+    rule and its error messages: ``tp > 1`` pins the model axis m to tp
+    and the data axis takes the rest, d = n / (pods·tp); otherwise d is
+    the widest data axis that still divides ``batch``."""
     pods = max(pods, 1)
+    tp = max(tp, 1)
     if n % pods:
         raise ValueError(f"{n} devices not divisible into {pods} pods")
     if pods > 1 and batch % pods:
@@ -111,6 +115,19 @@ def mesh_shape(n: int, batch: int = 1 << 30, pods: int = 1):
             f"global batch {batch} not divisible by the {pods}-pod lane "
             f"axis; pick a batch divisible by --pods")
     per = n // pods
+    if tp > 1:
+        if per % tp:
+            raise ValueError(
+                f"{per} devices per pod not divisible by "
+                f"--model-parallel {tp}")
+        d = per // tp
+        if batch % max(pods * d, 1):
+            raise ValueError(
+                f"global batch {batch} not divisible by the {pods}×{d} "
+                f"batch grid that --model-parallel {tp} leaves on "
+                f"{n} devices; pick a divisible batch (or change "
+                f"--pods/--model-parallel)")
+        return pods, d, tp
     d = 1
     while d * 2 <= per and per % (d * 2) == 0 \
             and batch % (pods * d * 2) == 0:
@@ -124,7 +141,12 @@ def new_lane_topology(n: int, N: int, *, replicas: int = 1,
     world rank ``(lane_rank·n + node_rank)·replicas + replica``.  Every
     process must call it, with the same arguments: it creates every node
     group, then every lane group, then (replicas > 1) every whole
-    communicator, each process taking part in all of them.
+    communicator, then every model group (the ``replicas`` processes of
+    one (lane, node) place) and, for replicas > 1, every process's group
+    of its own, each process taking part in all of them.  The topology's
+    ``model`` is this process's model topology: n = 1, N = replicas, the
+    model group its lane group and its communicator, global rank the
+    replica (the tensor-parallel rank).  No group is ever destroyed.
 
     ``lanes``: the survivor case, a topology over a subset of the world.
     Lane rank j is then the original outer slice ``lanes[j]`` (of any
@@ -155,15 +177,19 @@ def new_lane_topology(n: int, N: int, *, replicas: int = 1,
                  for i in range(n) for k in range(replicas)]
     whole_sets = [[w(j, i, r) for j in range(N) for i in range(n)]
                   for r in range(replicas)]
+    model_sets = [[w(j, i, k) for k in range(replicas)]
+                  for j in range(N) for i in range(n)]
     me = dist.get_rank()
     if local:
         mine = [s for s in node_sets if me in s]
         if not mine:
             return None
-        node_group, lane_group, group = (
+        node_group, lane_group, group, model_group = (
             dist.new_group(next(s for s in sets if me in s),
                            use_local_synchronization=True)
-            for sets in (node_sets, lane_sets, whole_sets))
+            for sets in (node_sets, lane_sets, whole_sets, model_sets))
+        own_group = model_group if replicas == 1 else \
+            dist.new_group([me], use_local_synchronization=True)
     else:
         node_group, _ = dist.new_subgroups_by_enumeration(node_sets)
         lane_group, _ = dist.new_subgroups_by_enumeration(lane_sets)
@@ -171,14 +197,23 @@ def new_lane_topology(n: int, N: int, *, replicas: int = 1,
             group, _ = dist.new_subgroups_by_enumeration(whole_sets)
         else:
             group = dist.group.WORLD
+        model_group, _ = dist.new_subgroups_by_enumeration(model_sets)
+        own_group = model_group if replicas == 1 else \
+            dist.new_subgroups_by_enumeration(
+                [[r] for r in range(world_size())])[0]
     k = me % replicas
     g = next(q for q, r in enumerate(whole_sets[k]) if r == me)
     j, i = divmod(g, n)
+    model = LaneTopology(
+        1, replicas, lane_rank=k, node_rank=0, node_group=own_group,
+        lane_group=model_group, group=model_group, node_ranks=[me],
+        lane_ranks=model_sets[g], ranks=model_sets[g])
     return LaneTopology(
         n, N, lane_rank=j, node_rank=i, node_group=node_group,
         lane_group=lane_group, group=group,
         node_ranks=[w(j, q, k) for q in range(n)],
-        lane_ranks=[w(q, i, k) for q in range(N)], ranks=whole_sets[k])
+        lane_ranks=[w(q, i, k) for q in range(N)], ranks=whole_sets[k],
+        model=model)
 
 
 def mesh_axes(P: int, d: int, m: int):
@@ -190,12 +225,13 @@ def mesh_axes(P: int, d: int, m: int):
     return ("data", "model"), (d, m)
 
 
-def make_lane_topology(batch: int = 1 << 30, pods: int = 1):
+def make_lane_topology(batch: int = 1 << 30, pods: int = 1, tp: int = 1):
     """(topology, single) for the started world: ``mesh_shape``'s layout,
     node level ``data`` and lane level ``pod`` when pods > 1; with one pod
     ``single`` is True and the topology is n = 1, N = d, as ``repro``'s
-    single-batch-axis mesh."""
-    P, d, m = mesh_shape(world_size(), batch, pods)
+    single-batch-axis mesh.  The model axis (m, tp when tp > 1) makes the
+    replicas, and ``topology.model`` the tensor-parallel group."""
+    P, d, m = mesh_shape(world_size(), batch, pods, tp)
     if P > 1:
         return new_lane_topology(d, P, replicas=m), False
     return new_lane_topology(1, d, replicas=m), True

@@ -30,6 +30,18 @@ The flavor follows the parameter layout ``run.gradsync`` registers
               reduce-scatter the gradients, and AdamW runs on the stripes.
               It needs two batch levels and raises on one, as ``repro``.
 
+The third parallelism axis (``repro``'s ``_parallel_kwargs``): every
+step's loss runs under ``models.parallel.parallel_context``.  With
+``model_parallel`` > 1 the MLP is ``mlp_tp`` over the topology's model
+group (``topo.model``, a degenerate n = 1 communicator), and the TP
+weights' zero-padded gradient blocks are summed over it (one all-reduce,
+adding zeros: ``_tp_assemble_tree``; under ``lane_zero3`` a masked sum of
+the stripes, ``_tp_row_mask``).  With ``expert_parallel`` the MoE is
+``moe_block_ep`` over the batch communicator: the replicated layouts slice
+their whole experts by rank, and ``lane_zero3`` keeps the experts out of
+the flat stack (``split_expert_stack``) as this process's (L, E/p, ...)
+f32 ``experts``, never gathered, with their own AdamW moments.
+
 Unlike ``repro``, which is functional, every step updates its state in
 place: at llama3.2-3b each functional copy is 12.85 GB of f32.  The
 flat AdamW runs over chunks, so its temporaries stay small.
@@ -61,8 +73,11 @@ from repro_torch.checkpoint import (REPLICATED, CheckpointCorruptError,
 from repro_torch.checkpoint.store import host_array, to_torch
 from repro_torch.comm import LaneComm
 from repro_torch.comm.layout import param_layout_kind
+from repro_torch.core import collectives as C
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.core.lane import LaneTopology
 from repro_torch.models import init_model, make_train_step
+from repro_torch.models.parallel import parallel_context
 from repro_torch.models.blockstack import (
     RowGather, ShardedStack, block_stack_spec,
     resolve_extras_prefetch_blocks, resolve_prefetch_blocks, shard_stack,
@@ -76,9 +91,70 @@ from repro_torch.optim.gradsync import (
 )
 
 
-def _make_loss(run: RunConfig):
-    """``lf(params, tokens, labels, extra) -> loss``."""
-    return make_train_step(run.model, remat=run.remat)
+def _local_topology() -> LaneTopology:
+    """The 1 x 1 topology of one process with no started world."""
+    return LaneTopology(1, 1, lane_rank=0, node_rank=0, node_group=None,
+                        lane_group=None, group=None, node_ranks=[0],
+                        lane_ranks=[0], ranks=[0])
+
+
+def _model_comm(run: RunConfig, comm: "LaneComm | None"):
+    """The model-axis communicator of a TP run (None at tp = 1): the
+    degenerate n = 1 decomposition of the model group
+    (``comm.topo.model``), its all-gathers resolving through the same
+    (collective, strategy) cells and config as every other call."""
+    tp = run.model_parallel
+    if tp <= 1:
+        return None
+    mt = None if comm is None else comm.topo.model
+    if mt is None or mt.p() != tp:
+        raise ValueError(
+            f"model_parallel={tp} needs a model axis of that size "
+            f"(this process's model group has "
+            f"{1 if mt is None else mt.p()})")
+    return LaneComm(mt, comm.cfg)
+
+
+def _parallel_kwargs(run: RunConfig, comm: "LaneComm | None",
+                     tp_comm: "LaneComm | None") -> dict:
+    """The ``parallel_context`` keywords of the run's third axis (empty:
+    no TP and no EP, the default path).
+
+    TP gathers over ``tp_comm`` (:func:`_model_comm`); EP routes through
+    the batch communicator ``comm`` itself (every process owns experts),
+    or, on one process, the 1 x 1 one."""
+    pc: dict = {}
+    if tp_comm is not None:
+        pc.update(tp=run.model_parallel, tp_comm=tp_comm)
+    if run.expert_parallel:
+        ep_comm = comm if comm is not None else LaneComm(_local_topology())
+        E, psz = run.model.num_experts, ep_comm.topo.p()
+        if E % psz:
+            raise ValueError(
+                f"expert_parallel needs num_experts={E} divisible by the "
+                f"batch-axes chip count p={psz}")
+        pc.update(ep=True, ep_comm=ep_comm, ep_blocks=run.ep_blocks)
+    return pc
+
+
+def _make_loss(run: RunConfig, comm: "LaneComm | None" = None,
+               tp_comm: "LaneComm | None" = None):
+    """``lf(params, tokens, labels, extra) -> loss``, under the run's
+    ``parallel_context`` when it has a third axis.  A
+    ``params["ep_experts"]`` entry (``lane_zero3``'s local experts, one
+    dict per layer) is taken off the params and carried on the context
+    for the stack body."""
+    base = make_train_step(run.model, remat=run.remat)
+    pc = _parallel_kwargs(run, comm, tp_comm)
+    if not pc:
+        return base
+
+    def lf(params, tokens, labels, extra):
+        params = dict(params)
+        experts = params.pop("ep_experts", None)
+        with parallel_context(**pc, ep_experts=experts):
+            return base(params, tokens, labels, extra)
+    return lf
 
 
 def _value_and_grad(lf):
@@ -170,8 +246,9 @@ def _mean_loss(comm: LaneComm, loss):
 
 
 def _build_replicated(run, opt, comm, single):
-    vg = _microbatched(_value_and_grad(_make_loss(run)), run.microbatch,
-                       _accum_dtype(run))
+    tp_comm = _model_comm(run, comm)
+    vg = _microbatched(_value_and_grad(_make_loss(run, comm, tp_comm)),
+                       run.microbatch, _accum_dtype(run))
     eff = "native" if single else run.gradsync
 
     def step(params, opt_state, tokens, labels, extra=None):
@@ -179,6 +256,8 @@ def _build_replicated(run, opt, comm, single):
         if comm is not None:
             with record_function("train_step/grad_sync"):
                 loss = _mean_loss(comm, loss)
+                if tp_comm is not None:
+                    _tp_assemble_tree(grads, tp_comm)
                 grads = comm.grad_sync(grads, strategy=eff)
         with record_function("train_step/optimizer"):
             params, opt_state = adamw_update(opt, grads, opt_state, params)
@@ -234,6 +313,63 @@ def _build_quorum(run, opt, comm):
     step.full_params = lambda params: params
     step.needs_quorum_mask = True
     return step
+
+
+# the FFN weights: under an "mlp", the leaves the tensor-parallel MLP
+# partitions, whose gradients mlp_tp computes as zero-padded column blocks
+# per model rank (every other gradient is already the same on every model
+# rank, its backward gathering the input's cotangent whole); under a
+# "moe", the (L, E, ...) experts the expert-parallel zero3 state keeps OUT
+# of the gathered flat stack (the router stays in it: its gradient is
+# dense over the tokens, and every process routes its own)
+_FFN_KEYS = ("w_up", "w_gate", "w_down")
+
+
+def _is_tp_leaf(keys) -> bool:
+    return "mlp" in keys and keys[-1] in _FFN_KEYS
+
+
+def _tp_assemble_tree(grads, tp_comm) -> None:
+    """Sum the TP MLP weight gradients over the model group, in place.
+    Each model rank holds the zero-padded column block of its slice of
+    the replicated gradient (``mlp_tp``'s backward), so the sum
+    concatenates disjoint blocks exactly; the other leaves pass."""
+    group = tp_comm.topo.group
+    works = [dist.all_reduce(g, group=group, async_op=True)
+             for path, g in _tree.flatten(grads) if _is_tp_leaf(path)]
+    for w in works:
+        w.wait()
+
+
+def _tp_row_mask(layout) -> torch.Tensor:
+    """Bool over ONE unpadded flat row of ``layout``: True exactly on the
+    TP-partitioned MLP weights' elements (layout order)."""
+    parts = [torch.full((math.prod(shape),), _is_tp_leaf(path))
+             for path, (shape, _) in zip(layout.paths, layout.metas)]
+    return torch.cat(parts) if parts else torch.zeros(0, dtype=torch.bool)
+
+
+def split_expert_stack(stack):
+    """A MoE layer stack (the port's list of layer dicts) -> ``(the stack
+    without the experts, experts)``: ``experts`` one dict per layer of the
+    moe FFN weights, in their natural (E, ...) shapes (the expert-parallel
+    state shards them over E across the batch ranks, in global-rank
+    order, and never gathers them); the stack keeps the router and
+    everything else for the flat 1/p layout."""
+    if not stack or "moe" not in stack[0]:
+        raise ValueError(
+            f"expert_parallel needs a 'moe' stack entry (stack keys: "
+            f"{sorted(stack[0]) if stack else []})")
+    rest, experts = [], []
+    for lp in stack:
+        moe = lp["moe"]
+        ex = {k: moe[k] for k in _FFN_KEYS if k in moe}
+        if not ex:
+            raise ValueError("'moe' stack entry has no expert FFN weights")
+        rest.append({**lp, "moe": {k: v for k, v in moe.items()
+                                   if k not in ex}})
+        experts.append(ex)
+    return rest, experts
 
 
 def _node_mean(topo, loss):
@@ -300,8 +436,8 @@ def _build_zero1(run, opt, comm):
     lane), and the decay follows ``decay_mask_flat``."""
     topo = comm.topo
     n = topo.n()
-    vg = _microbatched(_value_and_grad(_make_loss(run)), run.microbatch,
-                       _accum_dtype(run))
+    vg = _microbatched(_value_and_grad(_make_loss(run, comm)),
+                       run.microbatch, _accum_dtype(run))
     masks = {}
 
     def decay_mask(params, K):
@@ -365,13 +501,23 @@ def zero1_opt_init(params, n: int, num_buckets: int = 0) -> dict:
 # ModelConfig alone (the meta-device template), so the state and the step
 # agree on them.
 
-def zero3_stack_layouts(cfg: ModelConfig) -> dict:
+def zero3_stack_layouts(cfg: ModelConfig, ep: bool = False) -> dict:
     """``{"blocks": StackLayout, "extras": StackLayout}`` of the family's
-    sharded stacks, from the parameter template (no weights)."""
+    sharded stacks, from the parameter template (no weights).  ``ep=True``
+    (expert parallelism) keeps the MoE expert FFN leaves out of the
+    blocks layout: they live in the never-gathered local experts."""
     stack, extras, _ = split_params(block_stack_spec(cfg),
                                     init_model(cfg, device="meta"))
+    if ep:
+        stack, _ = split_expert_stack(stack)
     return {"blocks": stack_layout(stack, stacked=True),
             "extras": stack_layout(extras, stacked=False)}
+
+
+def _expert_rows(experts) -> list:
+    """(L, E', ...) expert leaves -> one dict of row views per layer."""
+    L = next(iter(experts.values())).shape[0]
+    return [{k: t[i] for k, t in experts.items()} for i in range(L)]
 
 
 def _stripe_len(layout, n: int, N: int, B: int) -> int:
@@ -382,14 +528,17 @@ def _stripe_len(layout, n: int, N: int, B: int) -> int:
 
 
 def zero3_opt_init(cfg: ModelConfig, params, n: int, N: int,
-                   fsdp_prefetch: int = 0, *, device="cuda") -> dict:
+                   fsdp_prefetch: int = 0, *, ep: bool = False,
+                   device="cuda") -> dict:
     """The split AdamW state of ``lane_zero3``: flat f32 moments of this
     process's stripes of the layer stack ((L, B·s)) and of the extras,
     and an ordinary AdamW tree for the family's replicated keys (empty
     but for the hybrid's shared attention block).  B resolves as the
-    step's does: pass the same ``fsdp_prefetch``."""
+    step's does: pass the same ``fsdp_prefetch``.  ``ep=True`` adds
+    ``"experts"``: AdamW moments shaped like ``params["experts"]``, this
+    process's (L, E/p, ...) experts."""
     dev = resolve_device(device)
-    lays = zero3_stack_layouts(cfg)
+    lays = zero3_stack_layouts(cfg, ep=ep)
     lay_b, lay_e = lays["blocks"], lays["extras"]
     Bb = resolve_prefetch_blocks(lay_b.row_elems, n, N, fsdp_prefetch)
     Be = resolve_extras_prefetch_blocks(lay_e.row_elems, n, N,
@@ -399,9 +548,12 @@ def zero3_opt_init(cfg: ModelConfig, params, n: int, N: int,
         "v": torch.zeros(shape, dtype=torch.float32, device=dev),
         "count": 0}
     _, _, repl = split_params(block_stack_spec(cfg), params)
-    return {"rest": adamw_init(repl),
-            "blocks": flat(lay_b.length, _stripe_len(lay_b, n, N, Bb)),
-            "extras": flat(_stripe_len(lay_e, n, N, Be))}
+    out = {"rest": adamw_init(repl),
+           "blocks": flat(lay_b.length, _stripe_len(lay_b, n, N, Bb)),
+           "extras": flat(_stripe_len(lay_e, n, N, Be))}
+    if ep:
+        out["experts"] = adamw_init(params["experts"])
+    return out
 
 
 def _build_zero3(run, opt, comm, single):
@@ -426,7 +578,8 @@ def _build_zero3(run, opt, comm, single):
     cfg, topo = run.model, comm.topo
     n, N = topo.sizes()
     p = topo.p()
-    lays = zero3_stack_layouts(cfg)
+    ep_on, tp_comm = run.expert_parallel, _model_comm(run, comm)
+    lays = zero3_stack_layouts(cfg, ep=ep_on)
     lay_b, lay_e = lays["blocks"], lays["extras"]
     Bb = resolve_prefetch_blocks(lay_b.row_elems, n, N, run.fsdp_prefetch)
     Be = resolve_extras_prefetch_blocks(lay_e.row_elems, n, N,
@@ -440,13 +593,15 @@ def _build_zero3(run, opt, comm, single):
             "is supposed to measure")
     gather_b = RowGather(comm, lay_b, Bb)
     gather_e = RowGather(comm, lay_e, Be)
-    lf = _make_loss(run)
+    lf = _make_loss(run, comm, tp_comm)
 
     def lf3(diff, tokens, labels, extra):
         params = {**diff["repl"], **diff["extras"]}
         params["blocks"] = ShardedStack(diff["blocks"], gather_b,
                                         prefetch=not blocking,
                                         regather=run.fsdp_regather)
+        if ep_on:
+            params["ep_experts"] = diff["experts"]
         return lf(params, tokens, labels, extra)
 
     vg = _microbatched(_value_and_grad(lf3), run.microbatch,
@@ -461,17 +616,36 @@ def _build_zero3(run, opt, comm, single):
                 for lay, B in ((lay_b, Bb), (lay_e, Be))]
         return masks[dev]
 
+    tp_idx = {}
+
+    def tp_index(dev):
+        """Where this process's stripe of a stack row holds TP weights."""
+        if dev not in tp_idx:
+            row = torch.zeros(_stripe_len(lay_b, n, N, Bb) * p,
+                              dtype=torch.bool)
+            m = _tp_row_mask(lay_b)
+            row[:m.numel()] = m
+            tp_idx[dev] = zero3_param_shard(row, topo, Bb).nonzero()[:, 0] \
+                .to(dev)
+        return tp_idx[dev]
+
     def step(params, opt_state, tokens, labels, extra=None):
         master_b, shard_e = params["blocks"], params["extras"]
         repl = {k: v for k, v in params.items()
-                if k not in ("blocks", "extras")}
+                if k not in ("blocks", "extras", "experts")}
         rows = [master_b[i].detach().requires_grad_(True)
                 for i in range(lay_b.length)]
         with torch.no_grad():
             ext_leaves = gather_e.detached(shard_e)
         ext = lay_e.tree_of([t.requires_grad_(True) for t in ext_leaves])
-        loss, g = vg({"repl": repl, "blocks": rows, "extras": ext}, tokens,
-                     labels, extra)
+        diff = {"repl": repl, "blocks": rows, "extras": ext}
+        if ep_on:
+            # this process's f32 experts, never gathered: layer rows that
+            # the stack body casts to the model's dtype
+            diff["experts"] = [{k: t.detach().requires_grad_(True)
+                                for k, t in lp.items()}
+                               for lp in _expert_rows(params["experts"])]
+        loss, g = vg(diff, tokens, labels, extra)
         with torch.no_grad():
             with record_function("train_step/grad_sync"):
                 loss = _mean_loss(comm, loss)
@@ -479,13 +653,33 @@ def _build_zero3(run, opt, comm, single):
                     [a.to(t.dtype) for a, t in
                      zip(_tree.leaves(g["extras"]), ext_leaves)],
                     shard_e.numel()).div_(p)
+                # the gathers' transposes reduce-scattered the stripes'
+                # gradients summed over the replicas; the experts' come
+                # whole to their owner through the routing's transpose
                 g_b = [t.div_(p) for t in g["blocks"]]
+                g_x = [{k: t.div_(p) for k, t in lp.items()}
+                       for lp in g.get("experts", [])]
                 g_repl = g["repl"]
                 have_repl = bool(_tree.leaves(g_repl))
+                if tp_comm is not None:
+                    # each model rank's stripe holds the zero-padded column
+                    # blocks of the TP weights: one masked sum over the
+                    # model group assembles them (adding zeros), the other
+                    # elements are the same on every model rank
+                    idx = tp_index(master_b.device)
+                    for gi in g_b:
+                        sel = gi[idx]
+                        dist.all_reduce(sel, group=tp_comm.topo.group)
+                        gi[idx] = sel
+                    if have_repl:
+                        _tp_assemble_tree(g_repl, tp_comm)
                 if have_repl:
                     comm.grad_sync(g_repl, strategy="lane")
+                # the stripes and the E/p experts are disjoint over the
+                # processes: one scalar all-reduce totals their squares
                 gsq = (sum(_sq_sum(t) for t in g_b) + _sq_sum(g_e)
-                       ).reshape(1)
+                       + sum(_sq_sum(t.reshape(-1)) for lp in g_x
+                             for t in lp.values())).reshape(1)
                 dist.all_reduce(gsq, group=topo.group)
                 gsq = gsq[0]
                 if have_repl:
@@ -507,23 +701,49 @@ def _build_zero3(run, opt, comm, single):
                                 ob["count"], scale=scale, decay_mask=mask_b)
                 _adamw_flat(opt, g_e, oe["m"], oe["v"], shard_e, oe["count"],
                             scale=scale, decay_mask=mask_e)
+                if ep_on:
+                    # the tree AdamW over the experts' layer rows, in
+                    # place (every expert leaf decays, as in repro)
+                    ox = opt_state["experts"]
+                    st = {"m": _expert_rows(ox["m"]),
+                          "v": _expert_rows(ox["v"]), "count": ox["count"]}
+                    adamw_update(opt, g_x, st, _expert_rows(params["experts"]),
+                                 grad_norm=gnorm)
+                    ox["count"] = st["count"]
         return loss, params, opt_state
 
     def full_params(params):
-        """The whole parameter tree, gathered (no autograd, not counted)."""
+        """The whole parameter tree, gathered (no autograd, not counted):
+        under EP the experts of every process are gathered in global-rank
+        order and put back in each layer's ``moe``."""
         with torch.no_grad():
             gather = lambda lay, row, B: lay.unflatten_row(
                 comm.prefetch_allgather(row, num_blocks=B))
             tree = gather(lay_e, params["extras"], Be)
             tree.update({k: v for k, v in params.items()
-                         if k not in ("blocks", "extras")})
+                         if k not in ("blocks", "extras", "experts")})
             tree["blocks"] = [gather(lay_b, row, Bb)
                               for row in params["blocks"]]
+            if ep_on:
+                dt = getattr(torch, cfg.dtype)
+                whole = {k: _allgather_experts(t, topo).to(dt)
+                         for k, t in params["experts"].items()}
+                for i, lp in enumerate(tree["blocks"]):
+                    lp["moe"].update({k: t[i] for k, t in whole.items()})
         return tree
 
     step.full_params = full_params
     step.gathers = (gather_b, gather_e)
     return step
+
+
+def _allgather_experts(t, topo):
+    """This process's (L, E/p, ...) expert leaf -> the whole (L, E, ...),
+    the blocks in global-rank order, on every process."""
+    if topo.p() == 1:
+        return t.clone()
+    parts = C.native_allgather(t.transpose(0, 1).contiguous(), topo)
+    return parts.transpose(0, 1).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -560,9 +780,11 @@ def zero3_checkpoint_layout(cfg: ModelConfig, n: int, N: int,
                             fsdp_prefetch: int = 0, ep: bool = False):
     """The checkpoint layout of ``lane_zero3``'s (L, B, p, s) masters, the
     layer stack and the extras pseudo-layer (the same B as
-    ``shard_stack``, ``zero3_opt_init`` and the step).  ``ep=True`` (the
-    expert-parallel flavour) raises: ROADMAP.md item 10."""
-    lays = zero3_stack_layouts(cfg)
+    ``shard_stack``, ``zero3_opt_init`` and the step).  ``ep=True``
+    records the expert-parallel flavour: the blocks geometry leaves the
+    expert FFN leaves out (they are checkpointed whole in their natural
+    (L, E, ...) shapes, which are canonical)."""
+    lays = zero3_stack_layouts(cfg, ep=ep)
     lay_b, lay_e = lays["blocks"], lays["extras"]
     Bb = resolve_prefetch_blocks(lay_b.row_elems, n, N, fsdp_prefetch)
     Be = resolve_extras_prefetch_blocks(lay_e.row_elems, n, N,
@@ -587,6 +809,10 @@ def init_lane_train_state(run: RunConfig, params, comm=None, *,
                   ``shard_stack``'s masters, and ``zero3_opt_init``;
                   ``zero3_checkpoint_layout``, which must describe the
                   masters just made (it raises on drift, as ``repro``).
+                  Expert-parallel, also ``"experts"``: this process's
+                  (L, E/p, ...) f32 block of every expert leaf (experts
+                  [r·E/p, (r+1)·E/p) on global rank r, the order
+                  ``moe_block_ep`` routes by).
 
     The caller drops ``params`` afterwards: under zero3 the stripes
     replace it."""
@@ -601,10 +827,14 @@ def init_lane_train_state(run: RunConfig, params, comm=None, *,
         return (params, zero1_opt_init(params, n, run.gradsync_buckets),
                 zero1_checkpoint_layout(params, n, run.gradsync_buckets))
     cfg = run.model
-    layout = zero3_checkpoint_layout(cfg, n, N, run.fsdp_prefetch)
+    ep = run.expert_parallel
+    layout = zero3_checkpoint_layout(cfg, n, N, run.fsdp_prefetch, ep=ep)
     stack, extras, repl = split_params(block_stack_spec(cfg), params)
     idx = topo.node_rank() * N + topo.lane_rank()
     out, _ = init_train_state(repl, device=device)
+    if ep:
+        stack, experts = split_expert_stack(stack)
+        out["experts"] = _local_experts(experts, topo, dev)
     got = {}
     for key, tree, stacked in (("blocks", stack, True),
                                ("extras", extras, False)):
@@ -624,8 +854,21 @@ def init_lane_train_state(run: RunConfig, params, comm=None, *,
             f"checkpoint layout {layout.master_shape}/"
             f"{layout.extra_master_shape} "
             f"(B={layout.num_blocks}/{layout.extra_blocks})")
-    return out, zero3_opt_init(cfg, out, n, N, run.fsdp_prefetch,
+    return out, zero3_opt_init(cfg, out, n, N, run.fsdp_prefetch, ep=ep,
                                device=dev), layout
+
+
+def _local_experts(experts, topo, dev) -> dict:
+    """One dict per layer of whole (E, ...) expert leaves -> this
+    process's f32 (L, E/p, ...) block of each, on ``dev``."""
+    p, r = topo.p(), topo.global_rank()
+    out = {}
+    for k in experts[0]:
+        E = experts[0][k].shape[0]
+        out[k] = torch.stack([
+            lp[k].detach().narrow(0, r * (E // p), E // p).to(dev)
+            for lp in experts]).float()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -760,16 +1003,33 @@ def state_to_host(run: RunConfig, layout, params, opt_state, comm=None):
                for name, t in (("p", params[k]),
                                ("m", opt_state[k]["m"]),
                                ("v", opt_state[k]["v"]))}
+    if layout.ep:
+        # the experts of every process, whole along E in global-rank order
+        ox = opt_state["experts"]
+        experts = {name: {k: _cat_experts(_gather_to_root(t, topo))
+                          for k, t in tree.items()}
+                   for name, tree in (("p", params["experts"]),
+                                      ("m", ox["m"]), ("v", ox["v"]))}
     if not lead:
         return None
     p_r = _stacked({k: v for k, v in params.items()
-                    if k not in ("blocks", "extras")})
+                    if k not in ("blocks", "extras", "experts")})
     o_r = {"rest": _stacked(opt_state["rest"])}
     for k in ("blocks", "extras"):
         p_r[k] = masters[k, "p"]
         o_r[k] = {"count": opt_state[k]["count"], "m": masters[k, "m"],
                   "v": masters[k, "v"]}
+    if layout.ep:
+        p_r["experts"] = experts["p"]
+        o_r["experts"] = {"count": opt_state["experts"]["count"],
+                          "m": experts["m"], "v": experts["v"]}
     return p_r, o_r
+
+
+def _cat_experts(parts):
+    """Every process's (L, E/p, ...) block by global rank -> (L, E, ...);
+    None off the root."""
+    return None if parts is None else torch.cat(parts, dim=1)
 
 
 def host_to_state(run: RunConfig, layout, tree_r, comm=None, *,
@@ -820,15 +1080,29 @@ def host_to_state(run: RunConfig, layout, tree_r, comm=None, *,
         if k == "extras":
             m, v = m[0], v[0]
         opt[k] = {"m": m, "v": v, "count": count(o_r[k]["count"])}
+    if layout.ep:
+        # this process's block of experts: [r·E/p, (r+1)·E/p)
+        r, p = topo.global_rank(), topo.p()
+
+        def mine(a):
+            E = a.shape[1]
+            return to_torch(np.ascontiguousarray(
+                a[:, r * (E // p):(r + 1) * (E // p)])).float().to(dev)
+        ox = o_r["experts"]
+        params["experts"] = {k: mine(a) for k, a in p_r["experts"].items()}
+        opt["experts"] = {"m": {k: mine(a) for k, a in ox["m"].items()},
+                          "v": {k: mine(a) for k, a in ox["v"].items()},
+                          "count": count(ox["count"])}
     return params, opt
 
 
 def _state_template(cfg: ModelConfig, kind: str, *, flat=None, blocks=None,
-                    extras=None):
+                    extras=None, ep=False):
     """``(params, opt_state)`` of shapes in ``repro``'s layout (meta
     tensors; 0 for the step counts): ``replicated``; ``zero1`` with
     moments of ``flat`` elements; ``zero3`` with the stack and extras
-    masters of shapes ``blocks`` and ``extras``."""
+    masters of shapes ``blocks`` and ``extras``, and with ``ep`` the whole
+    f32 (L, E, ...) experts and their moments."""
     params_t = init_model(cfg, device="meta")
     adamw_t = lambda t: {"count": 0, "m": _stacked(_f32_like(t)),
                          "v": _stacked(_f32_like(t))}
@@ -845,6 +1119,14 @@ def _state_template(cfg: ModelConfig, kind: str, *, flat=None, blocks=None,
     for k, shape in (("blocks", blocks), ("extras", extras)):
         p_t[k] = _meta(shape)
         o_t[k] = {"count": 0, "m": _meta(shape), "v": _meta(shape)}
+    if ep:
+        stack_t, _, _ = split_params(block_stack_spec(cfg), params_t)
+        _, exp_t = split_expert_stack(stack_t)
+        shapes = {k: (len(exp_t), *t.shape) for k, t in exp_t[0].items()}
+        p_t["experts"] = {k: _meta(v) for k, v in shapes.items()}
+        o_t["experts"] = {"count": 0,
+                          "m": {k: _meta(v) for k, v in shapes.items()},
+                          "v": {k: _meta(v) for k, v in shapes.items()}}
     return p_t, o_t
 
 
@@ -853,20 +1135,17 @@ def _canonical_state_template(cfg: ModelConfig, entry: dict):
     ``entry`` (its manifest's) stores."""
     kind = (entry or {}).get("kind", "replicated")
     if kind == "zero3":
-        if entry.get("ep"):
-            raise NotImplementedError(
-                "an expert-parallel zero3 checkpoint: expert parallelism "
-                "is not ported yet (ROADMAP.md, Queue 1, item 10 (TP/EP))")
         if not entry.get("extra_elems"):
             raise ValueError(
                 "zero3 checkpoint predates the extras pseudo-layer (no "
                 "extra_elems in its layout entry); cross-layout restore "
                 "needs the current master format")
-        lays = zero3_stack_layouts(cfg)
+        ep = bool(entry.get("ep"))
+        lays = zero3_stack_layouts(cfg, ep=ep)
         return _state_template(
             cfg, kind,
             blocks=(lays["blocks"].length, lays["blocks"].row_elems),
-            extras=(1, lays["extras"].row_elems))
+            extras=(1, lays["extras"].row_elems), ep=ep)
     return _state_template(cfg, kind,
                            flat=int((entry or {}).get("total_elems", 0)))
 
@@ -875,7 +1154,8 @@ def _layout_template(cfg: ModelConfig, layout):
     """The template of a checkpoint tree in ``layout`` (host-global)."""
     if layout.kind == "zero3":
         return _state_template(cfg, "zero3", blocks=layout.master_shape,
-                               extras=layout.extra_master_shape)
+                               extras=layout.extra_master_shape,
+                               ep=layout.ep)
     return _state_template(cfg, layout.kind,
                            flat=getattr(layout, "padded", None))
 
@@ -906,21 +1186,33 @@ def state_to_replicated(cfg: ModelConfig, entry: dict, state):
             "count": count(o_r["count"])}
     if kind != "zero3":
         raise ValueError(f"unknown lane state layout kind {kind!r}")
-    lays = zero3_stack_layouts(cfg)
+    ep = bool(entry.get("ep"))
+    lays = zero3_stack_layouts(cfg, ep=ep)
     lay_b, lay_e = lays["blocks"], lays["extras"]
     _, _, repl_t = split_params(block_stack_spec(cfg), params_t)
     row = lambda a: _as_torch(a).float().contiguous()
+    dt_model = getattr(torch, cfg.dtype)
 
-    def tree(repl_src, blocks, extras, dtype=None):
+    def tree(repl_src, blocks, extras, experts, dtype=None):
         out = _unstacked(repl_src, _f32_like(repl_t) if dtype else repl_t,
                          _cast)
         out.update(lay_e.unflatten_row(row(extras[0]), dtype))
         out["blocks"] = [lay_b.unflatten_row(row(r), dtype) for r in blocks]
+        if experts is not None:
+            # the natural-shape experts back into each layer's moe (cast
+            # to the model's dtype, as unflatten_row casts the stack)
+            ex = {k: _as_torch(a) for k, a in experts.items()}
+            for i, lp in enumerate(out["blocks"]):
+                lp["moe"].update({k: a[i].to(dtype or dt_model)
+                                  for k, a in ex.items()})
         return out
+    px = p_r["experts"] if ep else None
     params = tree({k: p_r[k] for k in repl_t}, p_r["blocks"],
-                  p_r["extras"])
+                  p_r["extras"], px)
     moments = {name: tree(o_r["rest"][name], o_r["blocks"][name],
-                          o_r["extras"][name], torch.float32)
+                          o_r["extras"][name],
+                          o_r["experts"][name] if ep else None,
+                          torch.float32)
                for name in ("m", "v")}
     return params, {**moments, "count": count(o_r["blocks"]["count"])}
 
@@ -947,19 +1239,29 @@ def replicated_to_state(cfg: ModelConfig, run: RunConfig, n: int, N: int,
     if kind != "zero3":
         raise ValueError(f"unknown lane state layout kind {kind!r}")
     spec = block_stack_spec(cfg)
+    ep = run.expert_parallel
 
     def masters(tree):
         stack, extras, repl = split_params(spec, tree)
+        experts = None
+        if ep:
+            stack, ex = split_expert_stack(stack)
+            experts = {k: torch.stack([lp[k] for lp in ex]).float()
+                       for k in ex[0]}
         return (shard_stack(stack, n, N, run.fsdp_prefetch)[0],
                 shard_stack(extras, n, N, run.fsdp_prefetch,
-                            stacked=False)[0], _stacked(repl))
-    pb, pe, p3 = masters(params)
+                            stacked=False)[0], _stacked(repl), experts)
+    pb, pe, p3, px = masters(params)
     p3.update(blocks=pb, extras=pe)
-    (mb, me, mr), (vb, ve, vr) = masters(opt_state["m"]), \
+    (mb, me, mr, mx), (vb, ve, vr, vx) = masters(opt_state["m"]), \
         masters(opt_state["v"])
-    return p3, {"rest": {"count": count, "m": mr, "v": vr},
-                "blocks": {"count": count, "m": mb, "v": vb},
-                "extras": {"count": count, "m": me, "v": ve}}
+    o3 = {"rest": {"count": count, "m": mr, "v": vr},
+          "blocks": {"count": count, "m": mb, "v": vb},
+          "extras": {"count": count, "m": me, "v": ve}}
+    if ep:
+        p3["experts"] = px
+        o3["experts"] = {"count": count, "m": mx, "v": vx}
+    return p3, o3
 
 
 def restore_lane_train_state(ckpt_dir: str, run: RunConfig, layout,
@@ -1060,8 +1362,10 @@ def _restore_lane_state_at(ckpt_dir, run, layout, comm, step, device):
     # the masters once
     man, got = peek_manifest(ckpt_dir, step)
     entry = man.get("layout") or {}
+    # the ep flag changes the zero3 master geometry (the experts leave the
+    # flat stack): a change of it goes through the canonical form
     if entry.get("kind", "replicated") == layout.kind \
-            and not entry.get("ep"):
+            and bool(entry.get("ep")) == bool(getattr(layout, "ep", False)):
         tree, got = restore_checkpoint(ckpt_dir, _layout_template(cfg, layout),
                                        step=got, layout=layout)
     else:

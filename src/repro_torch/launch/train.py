@@ -92,10 +92,21 @@ before the step is built, unless those cells leave a level unseen (p =
       --arch llama3.2-3b --smoke --gradsync auto --tune \\
       --tuning-cache runs/tuning_cache.json --pods 2 --device cpu
 
-The rest of ``repro``'s training loop is not ported yet.  Each of its flags
-is accepted and raises, naming its ROADMAP.md item, when it is set away
-from its default: tensor and expert parallelism (item 10).  Nothing is
-ignored silently.
+Tensor and expert parallelism, as ``repro``'s loop: ``--model-parallel
+TP`` pins the world's model axis to TP (``mesh_shape``) and runs the MLP
+tensor-parallel over each model group (``models.layers.mlp_tp``); the
+batch is replicated over it.  ``--expert-parallel`` splits the MoE experts
+over the batch ranks and routes the tokens with the ``moe_route``
+all-to-all (``models.moe.moe_block_ep``), its dispatch pipelined over
+``--ep-blocks`` capacity blocks; under ``lane_zero3`` the experts are
+each rank's never-gathered E/p block, checkpointed in the ep layout:
+
+  PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.train \
+      --arch llama3.2-3b --smoke --batch 8 --gradsync lane_zero3 --pods 2 \
+      --model-parallel 2 --device cpu
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch dbrx-132b --smoke --gradsync lane_zero3 --pods 2 \
+      --expert-parallel --ep-blocks 2 --device cpu
 """
 from __future__ import annotations
 
@@ -134,14 +145,6 @@ from repro_torch.tuning import (DEFAULT_CACHE_NAME, DEFAULT_LADDER,
                                 load_misses, load_timing_table_or_none,
                                 probe_cells, probe_worklist,
                                 save_timing_table)
-
-# repro's flags that the port does not honour yet: (default, ROADMAP item)
-_ITEM = "ROADMAP.md, Queue 1, item"
-UNPORTED = {
-    "model_parallel": (1, f"{_ITEM} 10 (TP/EP)"),
-    "expert_parallel": (False, f"{_ITEM} 10 (TP/EP)"),
-    "ep_blocks": (1, f"{_ITEM} 10 (TP/EP)"),
-}
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -213,21 +216,20 @@ def _parser() -> argparse.ArgumentParser:
                     help="timing-cache path (default: tuning_cache.json "
                          "inside --ckpt when one is set); restored "
                          "entries feed dispatch without re-probing")
-    for name, (default, _) in UNPORTED.items():
-        flag = "--" + name.replace("_", "-")
-        if isinstance(default, bool):
-            ap.add_argument(flag, action="store_true", help="not ported")
-        else:
-            ap.add_argument(flag, type=type(default), default=default,
-                            help="not ported")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="tensor-parallel degree: pins the world's model "
+                         "axis to this size; the MLP's activation "
+                         "collectives run over each model group (1 = off)")
+    ap.add_argument("--expert-parallel", action="store_true",
+                    help="MoE expert parallelism: the experts split over "
+                         "the batch ranks, the tokens routed by the "
+                         "moe_route all-to-all; under lane_zero3 each "
+                         "rank keeps its E/p experts, never gathered")
+    ap.add_argument("--ep-blocks", type=int, default=1,
+                    help="capacity blocks the routing all-to-all is "
+                         "pipelined over (block j+1's dispatch beside "
+                         "block j's expert FFN; 1 = sequential)")
     return ap
-
-
-def _refuse_unported(args) -> None:
-    for name, (default, item) in UNPORTED.items():
-        if getattr(args, name) != default:
-            raise NotImplementedError(
-                f"--{name.replace('_', '-')} is not ported yet ({item})")
 
 
 def _multi_rank() -> bool:
@@ -270,7 +272,6 @@ def run(argv=None, *, params=None, topo=None, stats=None):
     losses it logged and ``None`` for the state.  Past
     ``--max-restarts`` it prints ``repro``'s line and raises."""
     args = _parser().parse_args(argv)
-    _refuse_unported(args)
     prev_hw = get_hw()      # a fitted HW is this run's alone
     try:
         return _run(args, params, topo, stats)
@@ -285,7 +286,10 @@ def _run(args, params, topo, stats):
                         fsdp_prefetch=args.fsdp_prefetch,
                         fsdp_regather=args.fsdp_regather,
                         microbatch=args.microbatch,
-                        accum_dtype=args.accum_dtype)
+                        accum_dtype=args.accum_dtype,
+                        model_parallel=args.model_parallel,
+                        expert_parallel=args.expert_parallel,
+                        ep_blocks=args.ep_blocks)
     multi = _multi_rank()
     owns_world = multi and not dist.is_initialized()
     if multi:
@@ -293,14 +297,15 @@ def _run(args, params, topo, stats):
         world = dist.get_world_size()
         if topo is None:
             pods = mesh.resolve_pods(args.pods, args.gradsync)
-            names, shape = mesh.mesh_axes(
-                *mesh.mesh_shape(world, args.batch, pods))
+            names, shape = mesh.mesh_axes(*mesh.mesh_shape(
+                world, args.batch, pods, args.model_parallel))
         else:
             names = ("pod", "data", "model")
             shape = (topo.N(), topo.n(), world // topo.p())
     else:                                    # repro's rules, one device
         mesh.mesh_shape(1, args.batch,
-                        mesh.resolve_pods(args.pods, args.gradsync, 1))
+                        mesh.resolve_pods(args.pods, args.gradsync, 1),
+                        args.model_parallel)
         dev = resolve_device(args.device)
         names, shape = ("data", "model"), (1, 1)
     lead0 = not multi or dist.get_rank() == 0
@@ -337,7 +342,8 @@ def _run(args, params, topo, stats):
                           f"(lost {em.lost})", flush=True)
             elif multi:
                 if topo is None:
-                    topo, single = mesh.make_lane_topology(args.batch, pods)
+                    topo, single = mesh.make_lane_topology(
+                        args.batch, pods, args.model_parallel)
                 ranks = list(range(world))
             elif lost:                        # every loss empties (1, 1)
                 plan_elastic_mesh(names, shape, sorted(lost))

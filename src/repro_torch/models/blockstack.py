@@ -52,6 +52,7 @@ from repro_torch.comm.registry import (get_impl, has_impl, register_impl,
                                        strategies_for)
 from repro_torch.core.costmodel import optimal_prefetch_blocks
 from repro_torch.core.pipeline import pipelined_reduce_scatter_lane_
+from .parallel import bound
 
 __all__ = [
     "ShardedStack", "scan_stack", "scan_stack_cached", "RowGather", "StackLayout",
@@ -392,8 +393,8 @@ def scan_stack(stack: ShardedStack, h, body):
     L = len(shards)
     aux = []
     if stack.regather:
-        def cell(hh, row, i):
-            return body(hh, gather(row), i)
+        # the recompute runs in the backward, under the forward's context
+        cell = bound(lambda hh, row, i: body(hh, gather(row), i))
         for i in range(L):
             h, a = checkpoint(cell, h, shards[i], i, use_reentrant=False,
                               preserve_rng_state=False)

@@ -119,6 +119,168 @@ def mlp(p: dict, x, cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
+# tensor-parallel MLPs (over a model-axis LaneComm: n = 1, N = tp)
+# ---------------------------------------------------------------------------
+
+def _allgather_last(comm, x, strategy=None):
+    """All-gather the LAST axis over ``comm`` in global-rank order (the
+    feature axis moved to the front for the wire and back after; the
+    global rank is the model rank on the model topology, so the
+    concatenation follows the column slices)."""
+    g = comm.allgather(x.movedim(-1, 0).contiguous(), strategy=strategy)
+    return g.movedim(0, -1)
+
+
+def _tp_cols(comm, w, width: int, axis: int = 1):
+    """This model rank's ``width``-column block of ``w`` along ``axis``."""
+    return w.narrow(axis, comm.topo.global_rank() * width, width)
+
+
+def _tp_parts(act, comm, strategy, x, w_up, w_gate, w_down):
+    """mlp_tp's forward: (its output, the gathered activation)."""
+    tp = comm.topo.p()
+    f, d = w_up.shape[1], w_down.shape[1]
+    h = x @ _tp_cols(comm, w_up, f // tp)
+    if w_gate is not None:
+        h = _act(act)(x @ _tp_cols(comm, w_gate, f // tp)) * h
+    else:
+        h = _act(act)(h)
+    a = _allgather_last(comm, h, strategy)               # (.., f) whole
+    y = a @ _tp_cols(comm, w_down, d // tp)
+    return _allgather_last(comm, y, strategy), a         # (.., d) whole
+
+
+class _MlpTP(torch.autograd.Function):
+    """mlp_tp with ``repro``'s custom backward (``_mlp_tp_bwd``): column
+    blocks of the replicated backward, assembled by gathers.
+
+    Each product below is a contiguous output block of the replicated
+    backward's product with the same contraction, so each block is that
+    slice of the replicated gradient; the weight gradients come back
+    zero-padded to the whole weight (one sum over the model group
+    assembles them, adding zeros), and the input's cotangent is gathered
+    whole, so everything before the MLP sees the replicated cotangent.
+    Plain autograd through the forward's all-gathers would hand each rank
+    a tp-scaled partial cotangent instead."""
+
+    @staticmethod
+    def forward(ctx, x, w_up, w_gate, w_down, act, comm, strategy):
+        y, a = _tp_parts(act, comm, strategy, x, w_up, w_gate, w_down)
+        ctx.act, ctx.comm, ctx.strategy = act, comm, strategy
+        ctx.save_for_backward(x, a, w_up, w_gate, w_down)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, a, w_up, w_gate, w_down = ctx.saved_tensors
+        act, comm, strategy = ctx.act, ctx.comm, ctx.strategy
+        tp = comm.topo.p()
+        f, d = w_up.shape[1], w_down.shape[1]
+        fl, dl = f // tp, d // tp
+        r = comm.topo.global_rank()
+        # the replicated dh = dy @ w_down.T: rows r·fl.. of w_down give
+        # this rank's columns
+        dh = dy @ w_down.narrow(0, r * fl, fl).T
+        with torch.enable_grad():
+            h1 = (x @ _tp_cols(comm, w_up, fl)).detach().requires_grad_()
+            if w_gate is None:
+                dh1, = torch.autograd.grad(_act(act)(h1), h1, dh)
+                dhg = None
+            else:
+                hg = (x @ _tp_cols(comm, w_gate, fl)).detach() \
+                    .requires_grad_()
+                dh1, dhg = torch.autograd.grad(_act(act)(hg) * h1,
+                                               (h1, hg), dh)
+        bt = x.reshape(-1, x.shape[-1])                  # (B·T, d)
+
+        def wgrad(u, v, shape, col):
+            """``u.T @ v`` as columns col.. of a zero gradient of
+            ``shape``."""
+            g = u.new_zeros(shape)
+            g.narrow(1, col, v.shape[-1]).copy_(
+                u.T @ v.reshape(-1, v.shape[-1]))
+            return g
+
+        dw_up = wgrad(bt, dh1, w_up.shape, r * fl)
+        dw_gate = None if w_gate is None else \
+            wgrad(bt, dhg, w_gate.shape, r * fl)
+        dw_down = wgrad(a.reshape(-1, f), dy.narrow(-1, r * dl, dl),
+                        w_down.shape, r * dl)
+        # the whole f-cotangents (concatenations of exact slices), then
+        # the d-column block of dx and a gather back to whole
+        dh1 = _allgather_last(comm, dh1, strategy)
+        dx = dh1 @ w_up.narrow(0, r * dl, dl).T
+        if w_gate is not None:
+            dhg = _allgather_last(comm, dhg, strategy)
+            dx = dx + dhg @ w_gate.narrow(0, r * dl, dl).T
+        dx = _allgather_last(comm, dx, strategy)
+        return dx, dw_up, dw_gate, dw_down, None, None, None
+
+
+def mlp_tp(p: dict, x, cfg: ModelConfig, *, comm, strategy=None):
+    """Tensor-parallel MLP, equal to :func:`mlp` in its forward and in
+    each rank's gradients.
+
+    Every product is column-parallel: each model rank computes its f/tp
+    (then d/tp) output columns and an all-gather over the model group
+    puts the whole activation together (concatenation only), so each
+    element comes from the replicated path's dot products.  The backward
+    is :class:`_MlpTP`'s."""
+    tp = comm.topo.p()
+    f, d = cfg.d_ff, cfg.d_model
+    if f % tp or d % tp:
+        raise ValueError(
+            f"tensor-parallel degree {tp} must divide d_ff={f} and "
+            f"d_model={d}")
+    return _MlpTP.apply(x, p["w_up"], p.get("w_gate"), p["w_down"],
+                        cfg.act, comm, strategy)
+
+
+def mlp_tp_reduce(p: dict, x, cfg: ModelConfig, *, comm, strategy=None):
+    """Megatron-style TP MLP: column-parallel up/gate, ROW-parallel down,
+    one all-reduce over the model group on the output.
+
+    Half the activation traffic of :func:`mlp_tp` (no f-gather), but the
+    partial products are summed across ranks, so it equals :func:`mlp`
+    only to rounding.  A standalone function: no model path routes to it.
+    Its gradient goes through :class:`_AllReduceSum`, whose backward sums
+    the cotangents over the model group, as ``repro``'s autodiff of its
+    all-reduce gives it.  That is NOT the replicated MLP's gradient: the
+    output's cotangent is already the same on every rank, so each rank's
+    input cotangent and weight-gradient blocks come out ``tp`` times its
+    own partial, with no input-side reduce; use :func:`mlp_tp` where the
+    gradients must equal :func:`mlp`'s."""
+    tp = comm.topo.p()
+    f = cfg.d_ff
+    if f % tp:
+        raise ValueError(
+            f"tensor-parallel degree {tp} must divide d_ff={f}")
+    fl = f // tp
+    h = x @ _tp_cols(comm, p["w_up"], fl)
+    if "w_gate" in p:
+        h = _act(cfg.act)(x @ _tp_cols(comm, p["w_gate"], fl)) * h
+    else:
+        h = _act(cfg.act)(h)
+    down = p["w_down"].narrow(0, comm.topo.global_rank() * fl, fl)
+    return _AllReduceSum.apply(h @ down, comm, strategy)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """``comm.allreduce`` (a sum over the model group), whose backward is
+    the same sum of the cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, comm, strategy):
+        ctx.comm, ctx.strategy = comm, strategy
+        return comm.allreduce(x.contiguous(), strategy=strategy)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return ctx.comm.allreduce(dy.contiguous(), strategy=ctx.strategy), \
+            None, None
+
+
+# ---------------------------------------------------------------------------
 # Embedding / unembedding
 # ---------------------------------------------------------------------------
 

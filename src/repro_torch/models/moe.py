@@ -1,8 +1,8 @@
 """Mixture-of-Experts layer: token-choice top-k routing, capacity dispatch.
 
 Counterpart of ``repro.models.moe`` (``init_moe``, ``_route``,
-``_capacity``, ``_dispatch_buffer``, ``_combine``, ``moe_block``); the
-expert-parallel variant (``moe_block_ep``) is not ported yet.
+``_capacity``, ``_dispatch_buffer``, ``_combine``, ``moe_block``, and the
+expert-parallel ``moe_block_ep`` with ``_nested_fold`` and ``_ep_ffn``).
 
 Dispatch is per batch row: each row's (token, k) assignments are ranked
 within their expert, and an expert keeps the first ``C`` of them, with
@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from .layers import _act, dense_init, torch_dtype
 
-__all__ = ["init_moe", "moe_block"]
+__all__ = ["init_moe", "moe_block", "moe_block_ep"]
 
 
 def init_moe(cfg: ModelConfig, *, generator, device) -> dict:
@@ -118,3 +118,203 @@ def moe_block(p: dict, x, cfg: ModelConfig):
         h = _act(cfg.act)(h)
     y = torch.einsum("becf,efd->becd", h, p["w_down"])   # (B, E, C, d)
     return _combine(y, slot, keep, top_p, x, cfg), aux
+
+
+# ---------------------------------------------------------------------------
+# expert parallelism
+# ---------------------------------------------------------------------------
+
+def _nested_fold(parts, n: int, N: int):
+    """Sum per-source partials in the ``lane_zero3`` reduce-scatter's
+    association: the gathered path's flat gradient sync is RS(node), then
+    RS(lane), so per element an ascending fold over the node ranks inside
+    each lane, then over the lanes.  ``parts`` is indexed by global rank
+    s = lane·n + node."""
+    lanes = []
+    for l in range(N):
+        a = parts[l * n]
+        for j in range(1, n):
+            a = a + parts[l * n + j]
+        lanes.append(a)
+    tot = lanes[0]
+    for l in range(1, N):
+        tot = tot + lanes[l]
+    return tot
+
+
+def _ep_ffn_out(act, z, w_up, w_gate, w_down):
+    h = torch.einsum("sebcd,edf->sebcf", z, w_up)
+    if w_gate is not None:
+        h = _act(act)(torch.einsum("sebcd,edf->sebcf", z, w_gate)) * h
+    else:
+        h = _act(act)(h)
+    return torch.einsum("sebcf,efd->sebcd", h, w_down)
+
+
+class _EpFFN(torch.autograd.Function):
+    """The local expert FFN over the received tokens of capacity block j,
+    z: (s, e, b, c, d).
+
+    The forward contracts over d and f only, so every output element is
+    :func:`moe_block`'s.  The backward computes the weight gradients one
+    partial product per source rank and folds them with
+    :func:`_nested_fold`, the association in which the gathered path's
+    per-process partials meet in the ``lane_zero3`` reduce-scatter (plain
+    autograd would contract (s, b, c) in one product).  This is
+    ``repro``'s ``_ep_ffn`` custom VJP.  ``blocks`` (a dict shared by the
+    ``ep_blocks`` calls of one MoE block) holds each block's operands
+    until the last block's backward, which takes every weight gradient
+    over the whole capacity at once; the others give none.  So the
+    weight gradients are rounded once, as with ``ep_blocks = 1``, not
+    once per block and again in their sum (which parts the bf16 losses
+    from step 2)."""
+
+    @staticmethod
+    def forward(ctx, z, w_up, w_gate, w_down, act, n, N, blocks, j):
+        ctx.act, ctx.nN, ctx.blocks, ctx.j = act, (n, N), blocks, j
+        ctx.save_for_backward(z, w_up, w_gate, w_down)
+        return _ep_ffn_out(act, z, w_up, w_gate, w_down)
+
+    @staticmethod
+    def backward(ctx, dy):
+        z, w_up, w_gate, w_down = ctx.saved_tensors
+        act, (n, N) = ctx.act, ctx.nN
+        fa = _act(act)
+        with torch.enable_grad():
+            h1 = torch.einsum("sebcd,edf->sebcf", z, w_up).detach() \
+                .requires_grad_()
+            if w_gate is None:
+                a = fa(h1)
+                ins = (h1,)
+            else:
+                hg = torch.einsum("sebcd,edf->sebcf", z, w_gate).detach() \
+                    .requires_grad_()
+                a = fa(hg) * h1
+                ins = (h1, hg)
+            da = torch.einsum("sebcd,efd->sebcf", dy, w_down)
+            dh = torch.autograd.grad(a, ins, da)
+        a = a.detach()
+        dh1, dhg = dh[0], (dh[1] if w_gate is not None else None)
+        dz = torch.einsum("sebcf,edf->sebcd", dh1, w_up)
+        if w_gate is not None:
+            dz = dz + torch.einsum("sebcf,edf->sebcd", dhg, w_gate)
+        ops, k = ctx.blocks["ops"], ctx.blocks["k"]
+        ops[ctx.j] = (z, dh1, dhg, a, dy)
+        if len(ops) < k:
+            return dz, None, None, None, None, None, None, None, None
+        # every block's backward has run: the c axis whole again
+        z, dh1, dhg, a, dy = [
+            None if t[0] is None else torch.cat(t, dim=3)
+            for t in zip(*(ops.pop(i) for i in range(k)))]
+
+        def acc(u, v, spec):
+            return _nested_fold([torch.einsum(spec, u[s], v[s])
+                                 for s in range(n * N)], n, N)
+
+        dw_up = acc(z, dh1, "ebcd,ebcf->edf")
+        dw_gate = None if w_gate is None else acc(z, dhg, "ebcd,ebcf->edf")
+        dw_down = acc(a, dy, "ebcf,ebcd->efd")
+        return dz, dw_up, dw_gate, dw_down, None, None, None, None, None
+
+
+class _Routed(torch.autograd.Function):
+    """x -> its routed rows, the result of a ``moe_route`` started on it
+    (``work``); backward: the cotangent routed back, synchronously (the
+    all-to-all is its own transpose)."""
+
+    @staticmethod
+    def forward(ctx, x, work, comm, strategy):
+        ctx.comm, ctx.strategy = comm, strategy
+        return work.wait()
+
+    @staticmethod
+    def backward(ctx, dy):
+        return ctx.comm.moe_route(dy.contiguous(), strategy=ctx.strategy), \
+            None, None, None
+
+
+def _route_start(comm, x, strategy):
+    """Start routing ``x`` and return the call that waits for it, in the
+    autograd graph."""
+    work = comm.moe_route(x.detach(), strategy=strategy, async_op=True)
+    return lambda: _Routed.apply(x, work, comm, strategy)
+
+
+def moe_block_ep(p: dict, x, cfg: ModelConfig, *, comm, experts=None,
+                 ep_blocks: int = 1, strategy=None):
+    """Expert-parallel MoE block: the paper's decomposed all-to-all over
+    the expert axis, on the dispatch and the combine.
+
+    The process of global rank r owns experts ``[r·E/p, (r+1)·E/p)``; the
+    (B, E, C, d) dispatch buffer goes out destination-major through
+    ``comm.moe_route`` (the ``("moe_route", strategy)`` cells), each
+    process runs the FFN of its OWN experts over every source's tokens,
+    and a second ``moe_route`` brings the outputs back: two all-to-alls
+    of the 1/E-expert payload instead of the whole experts' weights.  The
+    slot buffer is :func:`moe_block`'s, so with ``ep_blocks=1`` the
+    forward is the gathered one's (the products contract over d and f
+    only).  Returns ``(out (B, T, d), aux_loss)``.
+
+    ``experts``: a dict of expert weights (w_up, w_down[, w_gate]) whose
+    leading dim is E (replicated weights, this process's block narrowed
+    out) or E/p (``lane_zero3``'s never-gathered local experts).  None
+    reads them from ``p``.
+
+    ``ep_blocks > 1`` pipelines the capacity dimension: the dispatch of
+    block j+1 is started (an async work handle) before block j's expert
+    FFN and waited for after it, so the routing traffic runs beside the
+    expert compute.  It must divide C.  The weight gradients are taken
+    over the whole capacity in the last block's backward (``_EpFFN``), so
+    they equal ``ep_blocks = 1``'s bit for bit.
+    """
+    B, T, d = x.shape
+    E = cfg.num_experts
+    topo = comm.topo
+    n, N = topo.sizes()
+    psz = max(n * N, 1)
+    if E % psz:
+        raise ValueError(
+            f"expert-parallel requires num_experts % p == 0, got "
+            f"E={E}, p={psz}")
+    Eloc = E // psz
+    buf, slot, keep, top_p, aux, C = _dispatch_buffer(p, x, cfg)
+    if ep_blocks < 1 or C % ep_blocks:
+        raise ValueError(
+            f"ep_blocks={ep_blocks} must be >= 1 and divide capacity "
+            f"C={C}")
+    w = experts if experts is not None else p
+    r = topo.global_rank()
+
+    def loc(a):
+        """This process's expert block of a whole or local weight."""
+        return a if a.shape[0] == Eloc else a.narrow(0, r * Eloc, Eloc)
+
+    w_up, w_down = loc(w["w_up"]), loc(w["w_down"])
+    w_gate = loc(w["w_gate"]) if "w_gate" in w else None
+    Cb = C // ep_blocks
+
+    def dispatch(chunk):
+        # (B, E, Cb, d) destination-major (each owner's experts together)
+        # -> routed (p, Eloc, B, Cb, d): my experts' tokens from source s
+        return _route_start(comm, chunk.transpose(0, 1).reshape(
+            E * B * Cb, d), strategy)
+
+    def combine(y):
+        # y's s axis is the destination: the reverse route returns
+        # (r, Eloc) = global expert r·Eloc + e
+        o = _route_start(comm, y.reshape(psz * Eloc * B * Cb, d),
+                         strategy)()
+        return o.reshape(psz, Eloc, B, Cb, d).permute(2, 0, 1, 3, 4) \
+            .reshape(B, E, Cb, d)
+
+    cur = dispatch(buf.narrow(2, 0, Cb))
+    outs, blocks = [], {"ops": {}, "k": ep_blocks}
+    for j in range(ep_blocks):
+        nxt = dispatch(buf.narrow(2, (j + 1) * Cb, Cb)) \
+            if j + 1 < ep_blocks else None
+        z = cur().reshape(psz, Eloc, B, Cb, d)
+        outs.append(combine(_EpFFN.apply(z, w_up, w_gate, w_down, cfg.act,
+                                         n, N, blocks, j)))
+        cur = nxt
+    ybuf = outs[0] if ep_blocks == 1 else torch.cat(outs, dim=2)
+    return _combine(ybuf, slot, keep, top_p, x, cfg), aux

@@ -53,6 +53,7 @@ from . import moe as M
 from . import ssm as S
 from .blockstack import (BlockSpec, ShardedStack, block_stack_spec,
                          register_block_stack, scan_stack, scan_stack_cached)
+from .parallel import bound, parallel_ctx
 
 _FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 # families whose every layer is an attention block (one KV cache per layer)
@@ -155,11 +156,20 @@ def _attn_noncache(lp, h, cfg: ModelConfig, *, causal: bool, positions,
 
 
 def _ffn(lp, h, cfg: ModelConfig):
-    """Pre-norm MLP or MoE with its residual: ``(h, aux_loss)``."""
+    """Pre-norm MLP or MoE with its residual: ``(h, aux_loss)``; under an
+    active :func:`~repro_torch.models.parallel.parallel_ctx` the MoE is
+    the expert-parallel block and the MLP the tensor-parallel one."""
     hn = _norm(cfg, lp["ln2"], h)
+    ctx = parallel_ctx()
     if "moe" in lp:
-        out, aux = M.moe_block(lp["moe"], hn, cfg)
+        if ctx.ep and ctx.ep_comm is not None:
+            out, aux = M.moe_block_ep(lp["moe"], hn, cfg, comm=ctx.ep_comm,
+                                      ep_blocks=ctx.ep_blocks)
+        else:
+            out, aux = M.moe_block(lp["moe"], hn, cfg)
         return h + out, aux
+    if ctx.tp > 1 and ctx.tp_comm is not None:
+        return h + L.mlp_tp(lp["mlp"], hn, cfg, comm=ctx.tp_comm), 0.0
     return h + L.mlp(lp["mlp"], hn, cfg), 0.0
 
 
@@ -234,18 +244,21 @@ def _layer_runner(remat: str):
     again in the backward; ``"dots"`` keeps the outputs of its products
     with no batch dimensions too (``_save_dots``) and recomputes the
     rest.  The forward draws no random numbers, so no RNG state is kept
-    for the recompute."""
+    for the recompute; it runs under the parallel context of the forward
+    (``parallel.bound``)."""
     if remat == "none":
         return lambda fn, *args: fn(*args)
     if remat == "full":
-        return lambda fn, *args: checkpoint(fn, *args, use_reentrant=False,
+        return lambda fn, *args: checkpoint(bound(fn), *args,
+                                            use_reentrant=False,
                                             preserve_rng_state=False)
     if remat == "dots":
         from torch.utils.checkpoint import \
             create_selective_checkpoint_contexts
         ctx = functools.partial(create_selective_checkpoint_contexts,
                                 _save_dots)
-        return lambda fn, *args: checkpoint(fn, *args, use_reentrant=False,
+        return lambda fn, *args: checkpoint(bound(fn), *args,
+                                            use_reentrant=False,
                                             preserve_rng_state=False,
                                             context_fn=ctx)
     raise ValueError(f"unknown remat policy {remat!r}; have 'none', "
@@ -339,12 +352,23 @@ def model_forward(params, cfg: ModelConfig, tokens, *, extra_embeds=None,
 
 def _scanned_stack_body(cfg, params, *, positions, enc_out, remat):
     """Per-layer body of the attention families: the replicated layer
-    loop's block, with its remat."""
+    loop's block, with its remat.
+
+    Under expert-parallel ``lane_zero3`` the expert weights live outside
+    the flat stack, in the never-gathered local experts
+    (``ParallelContext.ep_experts``, one dict of (E/p, ...) f32 leaves per
+    layer): layer i's are cast to the model's dtype and put in
+    ``lp["moe"]``, so the block itself is unchanged."""
     run = _layer_runner(remat)
     block = functools.partial(_dense_block, cfg=cfg, positions=positions,
                               enc_out=enc_out)
+    dt = L.torch_dtype(cfg)
 
     def body(h, lp, i):
+        experts = parallel_ctx().ep_experts
+        if experts is not None and "moe" in lp:
+            lp = {**lp, "moe": {**lp["moe"], **{
+                k: v.to(dt) for k, v in experts[i].items()}}}
         return run(block, lp, h)
     return body
 
@@ -388,8 +412,9 @@ def _block_stack_attn(cfg: ModelConfig) -> BlockSpec:
 
 @register_block_stack("moe")
 def _block_stack_moe(cfg: ModelConfig) -> BlockSpec:
-    """MoE: the same skeleton; the 1/p stripes slice through the experts
-    (no expert parallelism: ROADMAP.md, Queue 1, item 10)."""
+    """MoE: the same skeleton; the 1/p stripes slice through the experts,
+    or, expert-parallel, the experts stay out of the stack
+    (``launch.steps.split_expert_stack``)."""
     return BlockSpec(family="moe", make_body=_scanned_stack_body)
 
 

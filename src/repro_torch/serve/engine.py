@@ -94,7 +94,9 @@ class ContinuousBatcher:
               and slots over ``topo`` (every rank of it runs the same
               engine on the same requests, in lockstep; each gets every
               slot's logits), with the gather's ``prefetch_blocks`` and
-              the ``kv_strategy`` of the splice (``serve.steps``).
+              the ``kv_strategy`` of the splice (``serve.steps``), and
+              ``model_parallel``, tensor-parallel serving over the
+              topology's model group.
     step      inject a prebuilt ServeStep (its device wins).
     """
 
@@ -103,7 +105,7 @@ class ContinuousBatcher:
                  hosting: str = "replicated",
                  step: Optional[ServeStep] = None, device="cuda",
                  topo=None, prefetch_blocks: int = 0,
-                 kv_strategy: str = "lane"):
+                 kv_strategy: str = "lane", model_parallel: int = 1):
         self.cfg = cfg
         self.slots = int(slots)
         self.max_seq = int(max_seq)
@@ -121,7 +123,8 @@ class ContinuousBatcher:
             self.step = build_serve_step(
                 cfg, max_seq=self.max_seq, slots=self.slots,
                 hosting=hosting, device=device, topo=topo,
-                prefetch_blocks=prefetch_blocks, kv_strategy=kv_strategy)
+                prefetch_blocks=prefetch_blocks, kv_strategy=kv_strategy,
+                model_parallel=model_parallel)
         self.hosted = self.step.prepare(params)
         self.state = self.step.init_state()
         self._active: dict[int, Request] = {}

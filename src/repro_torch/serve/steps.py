@@ -21,7 +21,12 @@ run eagerly:
                ``kv_splice`` collective.  Each decode's logits are
                all-gathered in global-rank order, so every process sees
                every slot's row and the engines sample and admit in
-               lockstep.
+               lockstep.  With ``model_parallel`` > 1 the topology is one
+               replica of a world whose model axis is TP wide: the
+               forwards run inside ``parallel_context(tp=...)``, the MLP
+               as ``mlp_tp`` over the model group (``topo.model``), whose
+               output equals the replicated MLP's, so the model ranks
+               serve the same tokens.
 
 A :class:`ServeStep` is hosting-agnostic to its caller (the engine):
 
@@ -59,6 +64,7 @@ from repro_torch.models.blockstack import (
     resolve_extras_prefetch_blocks, resolve_prefetch_blocks, shard_stack,
     split_params)
 from repro_torch.models.layers import torch_dtype
+from repro_torch.models.parallel import parallel_context
 from repro_torch.models.transformer import check_family
 
 __all__ = ["ServeContext", "ServeStep", "build_serve_step", "HOSTINGS",
@@ -75,7 +81,8 @@ class ServeContext:
     ``repro`` takes a mesh); prefetch_blocks, the gather's B (0
     cost-model auto, -1 the blocking control), as ``run.fsdp_prefetch``;
     kv_strategy, the ``kv_splice`` cell (``"lane"`` or ``"native"``);
-    model_parallel, TP serving, which is not ported (> 1 raises)."""
+    model_parallel, the tensor-parallel degree, the size of the
+    topology's model group."""
     cfg: ModelConfig
     max_seq: int
     slots: int
@@ -189,10 +196,12 @@ def _serve_zero3(ctx: ServeContext) -> ServeStep:
             "the hybrid family cannot serve from 1/p-sharded weights "
             "(its grouped attention cache does not fit the flat cached "
             "layer scan); use hosting='replicated'")
-    if ctx.model_parallel > 1:
-        raise NotImplementedError(
-            "model_parallel > 1 (tensor-parallel serving) is not ported "
-            "yet (ROADMAP.md, Queue 1, item 10 (TP/EP))")
+    tp = max(ctx.model_parallel, 1)
+    if tp > 1 and (topo.model is None or topo.model.p() != tp):
+        raise ValueError(
+            f"model_parallel={tp} needs a model axis of that size (the "
+            f"topology's model group has "
+            f"{1 if topo.model is None else topo.model.p()})")
     n, N = topo.sizes()
     p = max(n * N, 1)
     if ctx.slots % p:
@@ -205,8 +214,13 @@ def _serve_zero3(ctx: ServeContext) -> ServeStep:
     Be = resolve_extras_prefetch_blocks(lay_e.row_elems, n, N,
                                         ctx.prefetch_blocks)
     blocking = ctx.prefetch_blocks == -1
-    comm = LaneComm(topo, CommConfig(prefetch_blocks=ctx.prefetch_blocks))
+    ccfg = CommConfig(prefetch_blocks=ctx.prefetch_blocks)
+    comm = LaneComm(topo, ccfg)
     gather_b = RowGather(comm, lay_b, Bb)
+    # the hosted forwards' parallel context: the TP activation collectives
+    # over the model group (nothing when tp == 1)
+    pkw = {} if tp == 1 else {"tp": tp,
+                              "tp_comm": LaneComm(topo.model, ccfg)}
     spec = block_stack_spec(cfg)
     # slot ownership follows the global rank (lane-major, the kv_splice
     # block order); the weight stripes keep shard_stack's node-major order
@@ -254,14 +268,17 @@ def _serve_zero3(ctx: ServeContext) -> ServeStep:
         toks = torch.as_tensor(toks, dtype=torch.long, device=dev)
         if extra is not None:
             extra = torch.as_tensor(extra, dtype=torch.float32, device=dev)
-        return prefill(_assemble(hosted), cfg, toks, cache1,
-                       extra_embeds=extra, true_len=true_len)
+        with parallel_context(**pkw):
+            return prefill(_assemble(hosted), cfg, toks, cache1,
+                           extra_embeds=extra, true_len=true_len)
 
     @torch.no_grad()
     def _decode(hosted, tok, state):
         tok = torch.as_tensor(tok, dtype=torch.long, device=dev)
-        logits, state = decode_step(_assemble(hosted), cfg,
-                                    tok[g * local:(g + 1) * local], state)
+        with parallel_context(**pkw):
+            logits, state = decode_step(_assemble(hosted), cfg,
+                                        tok[g * local:(g + 1) * local],
+                                        state)
         if p == 1:
             return logits, state
         out = logits.new_empty((ctx.slots, *logits.shape[1:]))

@@ -146,3 +146,68 @@ def zero_cases(topo_key):
         add("zero3_param_shard", "gradsync", dt, 3 * K * p)
         add("zero3_unshard", "gradsync", dt, 3 * K)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the third axis (tests/test_torch_parallel.py): the moe_route cells, and
+# the inputs of the tensor- and expert-parallel blocks
+# ---------------------------------------------------------------------------
+
+# repro's conformance grid of moe_route: f32 lane on four topologies, bf16
+# and int32 on t3, the native cell on t3; t2 holds the indivisible case
+MOE_ROUTE_TOPOS = ("t3", "het", "n1", "N1", "t2")
+MOE_ROUTE_ERRORS = [("t2", "moe_route", 12)]   # p = 8 does not divide 12
+
+
+def moe_route_cases(topo_key):
+    """[{name, coll, strategy, dtype, rows, kw, root, replicate}]: the
+    ``moe_route`` cells of ``topo_key``, 3·p rows per rank."""
+    n, N = TOPOS[topo_key]
+    p = n * N
+    out = []
+
+    def add(strategy, dt):
+        out.append(dict(name=f"moe_route.{strategy}.{dt}", coll="moe_route",
+                        strategy=strategy, dtype=dt, rows=3 * p, kw={},
+                        root=None, replicate=None))
+    if topo_key in ("t3", "het", "n1", "N1"):
+        add("lane", "f32")
+    if topo_key == "t3":
+        add("lane", "bf16")
+        add("lane", "int32")
+        add("native", "f32")
+    return out
+
+
+# the tensor-parallel MLP cases: the degrees, and (batch, tokens)
+TP_DEGREES = (2, 4)
+TP_SHAPE = (2, 4)
+# the expert-parallel cases: a (pod 2 x data 2) batch topology, each
+# rank's (batch, tokens), the capacity blocks, the aux loss's cotangent
+EP_TOPO = (2, 2)
+EP_SHAPE = (2, 8)
+EP_BLOCKS = (1, 2)
+EP_AUX_COT = 0.5
+
+
+def tp_inputs(d, f, seed=11):
+    """The TP MLP case: x (B, T, d), the gated MLP's weights, and the
+    output's cotangent, f32, the same on every rank."""
+    rng = np.random.default_rng(seed)
+    B, T = TP_SHAPE
+    g = lambda *s, scale=1.0: (rng.normal(size=s) * scale).astype(np.float32)
+    return {"x": g(B, T, d), "w_up": g(d, f, scale=0.1),
+            "w_gate": g(d, f, scale=0.1), "w_down": g(f, d, scale=0.1),
+            "dy": g(B, T, d)}
+
+
+def ep_inputs(d, f, E, seed=12):
+    """The EP case: every rank's x and output cotangent ((p, B, T, d),
+    rank-major) and the MoE weights (router, (E, ...) experts), f32."""
+    rng = np.random.default_rng(seed)
+    p = EP_TOPO[0] * EP_TOPO[1]
+    B, T = EP_SHAPE
+    g = lambda *s, scale=1.0: (rng.normal(size=s) * scale).astype(np.float32)
+    return {"x": g(p, B, T, d), "dy": g(p, B, T, d),
+            "router": g(d, E, scale=0.5), "w_up": g(E, d, f, scale=0.1),
+            "w_gate": g(E, d, f, scale=0.1), "w_down": g(E, f, d, scale=0.1)}

@@ -4,9 +4,11 @@ count=<devices>`` (the test process never sets it).
 
   python tests/_repro_lane_side.py collectives OUT.npz   # 8 devices
   python tests/_repro_lane_side.py zero OUT.npz          # 8 devices
+  python tests/_repro_lane_side.py parallel OUT.npz      # 8 devices
   python tests/_repro_lane_side.py gradsync IN.npz OUT.npz   # 4 devices
   python tests/_repro_lane_side.py gradsync_tree IN.npz OUT.npz  # 4
   python tests/_repro_lane_side.py train OUT.json ARGV...    # 4 devices
+  python tests/_repro_lane_side.py runs IN.json OUT.json     # 8 devices
   python tests/_repro_lane_side.py ckpt OUTDIR GS,GS ARGV...  # 4 devices
   python tests/_repro_lane_side.py quorum IN.npz OUT.npz     # 4 devices
   python tests/_repro_lane_side.py faults CASES.json OUT.json  # 4 devices
@@ -81,6 +83,10 @@ def _zero_call(comm, topo, case):
 
 
 def collectives(out_path, cases_of=grid.cases, call=_call):
+    np.savez(out_path, **_collectives(cases_of, call))
+
+
+def _collectives(cases_of=grid.cases, call=_call):
     out = {}
     for key in grid.TOPOS:
         shape, names, node_axes, lane = MESHES[key]
@@ -94,6 +100,8 @@ def collectives(out_path, cases_of=grid.cases, call=_call):
         cases = cases_of(key)
         for dt in grid.DTYPES:
             idx = [k for k, c in enumerate(cases) if c["dtype"] == dt]
+            if not idx:
+                continue
             xs = [grid.payload(cases[k], n, N, grid.seed_of(key, k))
                   for k in idx]
             fns = [call(comm, topo, cases[k]) for k in idx]
@@ -109,6 +117,67 @@ def collectives(out_path, cases_of=grid.cases, call=_call):
                 y = y if y.dtype == np.int32 else y.astype(np.float32)
                 out[f"{key}/{cases[k]['name']}"] = y.reshape(
                     p, y.shape[0] // p, *y.shape[1:])
+    return out
+
+
+def parallel(out_path):
+    """The third axis on 8 host devices (``tests/test_torch_parallel.py``):
+    every ``moe_route`` cell of ``grid.moe_route_cases`` on its
+    conformance mesh (``route/<topo>/<case>``, (p, rows, 2)); ``mlp_tp``
+    and ``mlp_tp_reduce`` of ``grid.tp_inputs`` (llama3.2-3b smoke) on a
+    (8/tp, tp) ``(data, model)`` mesh, their outputs and each model rank's
+    input gradients for the cotangent ``dy`` (``tp<tp>/<fn>/<y|dx|dw_up|
+    dw_gate|dw_down>``, (tp, ...)); and ``moe_block_ep`` of
+    ``grid.ep_inputs`` (dbrx-132b smoke) on a (pod 2 x data 2 x model 2)
+    mesh at each ``grid.EP_BLOCKS``, each batch rank's output, aux loss
+    and gradients (``ep<blocks>/<y|aux|dx|drouter|dw_up|dw_gate|
+    dw_down>``, (p, ...))."""
+    from repro.configs import resolve
+    from repro.models.layers import mlp_tp, mlp_tp_reduce
+    from repro.models.moe import moe_block_ep
+    out = {f"route/{k}": v for k, v in
+           _collectives(grid.moe_route_cases).items()}
+    cfg = resolve("llama3.2-3b", smoke=True)
+    inp = grid.tp_inputs(cfg.d_model, cfg.d_ff)
+    names = ("y", "dx", "dw_up", "dw_gate", "dw_down")
+    for tp in grid.TP_DEGREES:
+        mesh = jax.make_mesh((8 // tp, tp), ("data", "model"))
+        comm = LaneComm(LaneTopology(node_axes=(), lane_axis="model"),
+                        mesh=mesh)
+        for label, fn in (("mlp_tp", mlp_tp), ("mlp_tp_reduce",
+                                                mlp_tp_reduce)):
+            def body(x, a, b, c, dy, fn=fn, comm=comm):
+                y, vjp = jax.vjp(lambda x, a, b, c: fn(
+                    {"w_up": a, "w_gate": b, "w_down": c}, x, cfg,
+                    comm=comm), x, a, b, c)
+                return tuple(t[None] for t in (y, *vjp(dy)))
+            res = jax.jit(jax.shard_map(
+                body, mesh=mesh, in_specs=(P(),) * 5,
+                out_specs=(P("model"),) * 5, check_vma=False))(
+                *[inp[k] for k in ("x", "w_up", "w_gate", "w_down", "dy")])
+            for key, v in zip(names, res):
+                out[f"tp{tp}/{label}/{key}"] = np.asarray(v)
+    cfg = resolve("dbrx-132b", smoke=True)
+    e = grid.ep_inputs(cfg.d_model, cfg.d_ff, cfg.num_experts)
+    mesh = jax.make_mesh((*grid.EP_TOPO, 2), ("pod", "data", "model"))
+    comm = LaneComm(LaneTopology(node_axes=("data",), lane_axis="pod"),
+                    mesh=mesh)
+    bspec = P(("pod", "data"))
+    for blocks in grid.EP_BLOCKS:
+        def body(x, dy, router, a, b, c, blocks=blocks):
+            (y, aux), vjp = jax.vjp(lambda x, r, a, b, c: moe_block_ep(
+                {"router": r, "w_up": a, "w_gate": b, "w_down": c}, x, cfg,
+                comm=comm, ep_blocks=blocks), x[0], router, a, b, c)
+            gs = vjp((dy[0], jnp.float32(grid.EP_AUX_COT)))
+            return tuple(t[None] for t in (y, aux, *gs))
+        res = jax.jit(jax.shard_map(
+            body, mesh=mesh, in_specs=(bspec, bspec, P(), P(), P(), P()),
+            out_specs=(bspec,) * 7, check_vma=False))(
+            *[e[k] for k in ("x", "dy", "router", "w_up", "w_gate",
+                             "w_down")])
+        for key, v in zip(("y", "aux", "dx", "drouter", "dw_up", "dw_gate",
+                           "dw_down"), res):
+            out[f"ep{blocks}/{key}"] = np.asarray(v)
     np.savez(out_path, **out)
 
 
@@ -190,6 +259,25 @@ def train(out_path, argv):
         jtrain.float = record
         jtrain.main(["--arch", arch, *rest, "--log-every", "1"])
         losses[arch] = got
+    pathlib.Path(out_path).write_text(json.dumps(losses))
+
+
+def runs(in_path, out_path):
+    """IN.json: {name: argv}; ``repro.launch.train.main`` with each argv
+    in turn (``--log-every 1`` added), every step's loss recorded at full
+    precision: OUT.json {name: losses}."""
+    import repro.launch.train as jtrain
+    losses = {}
+    for name, argv in json.loads(pathlib.Path(in_path).read_text()).items():
+        got = []
+
+        def record(x, got=got):     # train.py's only float(): the loss
+            got.append(builtins.float(x))
+            return got[-1]
+        jtrain.float = record
+        rc = jtrain.main([*argv, "--log-every", "1"])
+        assert rc == 0, (name, rc)
+        losses[name] = got
     pathlib.Path(out_path).write_text(json.dumps(losses))
 
 
@@ -305,6 +393,10 @@ if __name__ == "__main__":
         collectives(*rest)
     elif cmd == "zero":
         collectives(*rest, cases_of=grid.zero_cases, call=_zero_call)
+    elif cmd == "parallel":
+        parallel(*rest)
+    elif cmd == "runs":
+        runs(*rest)
     elif cmd == "gradsync_tree":
         gradsync_tree(*rest)
     elif cmd == "gradsync":

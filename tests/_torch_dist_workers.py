@@ -814,3 +814,134 @@ def tuning_rank(npz, planted, tuned_path, argv):
             "lead_only": lead_only, "tuned": tuned,
             "tuned_cache": load_timing_table(tuned_path).to_doc(),
             "priced": priced, "hw": (hw, get_hw())}
+
+
+def parallel_rank():
+    """On an 8-rank world, the third axis's cases of ``grid`` (this rank's
+    results; ``_repro_lane_side.py parallel`` gives ``repro``'s):
+
+      * ``route/<topo>/<case>``: every ``moe_route`` cell on each
+        conformance topology, ``route_error/<topo>`` the indivisible
+        case's exception type name;
+      * ``tp<tp>/<fn>/<y|dx|dw_*>``: ``mlp_tp`` / ``mlp_tp_reduce`` on
+        the model group of a (2, 8/(2·tp)) x tp world (this rank's
+        zero-padded weight gradients, unsummed), and ``tp<tp>/mlp/...``
+        the plain ``mlp`` on the same inputs;
+      * ``ep<blocks>/<y|aux|dx|drouter|dw_*>``: ``moe_block_ep`` on a
+        (pod 2 x data 2) topology (two replicas of it in the world) with
+        this rank's rows of ``grid.ep_inputs``, and ``gather/...`` the
+        port's ``moe_block`` on the same rows."""
+    from repro_torch.comm import LaneComm
+    from repro_torch.configs import resolve
+    from repro_torch.launch.mesh import new_lane_topology
+    from repro_torch.models.layers import mlp, mlp_tp, mlp_tp_reduce
+    from repro_torch.models.moe import moe_block, moe_block_ep
+    out = {}
+    for key in grid.MOE_ROUTE_TOPOS:
+        n, N = grid.TOPOS[key]
+        topo = new_lane_topology(n, N)
+        comm, g = LaneComm(topo), topo.global_rank()
+        for k, case in enumerate(grid.moe_route_cases(key)):
+            xs = grid.payload(case, n, N, grid.seed_of(key, k))
+            y = comm.moe_route(torch.from_numpy(xs[g]).to(DT[case["dtype"]]),
+                               strategy=case["strategy"])
+            out[f"route/{key}/{case['name']}"] = _numpy(y)
+        for tk, coll, rows in grid.MOE_ROUTE_ERRORS:
+            if tk == key:
+                try:
+                    comm.moe_route(torch.zeros((rows, 2)), strategy="lane")
+                    out[f"route_error/{key}"] = None
+                except Exception as e:  # noqa: BLE001 - the type is the result
+                    out[f"route_error/{key}"] = type(e).__name__
+
+    def grads(fn, named, cot):
+        leaves = [t.clone().requires_grad_(True) for t in named.values()]
+        y = fn(*leaves)
+        ys = y if isinstance(y, tuple) else (y,)
+        gs = torch.autograd.grad(ys, leaves, cot)
+        return [t.detach() for t in ys] + [t.detach() for t in gs]
+
+    cfg = resolve("llama3.2-3b", smoke=True)
+    inp = {k: torch.from_numpy(v) for k, v in
+           grid.tp_inputs(cfg.d_model, cfg.d_ff).items()}
+    names = ("y", "dx", "dw_up", "dw_gate", "dw_down")
+    named = {k: inp[k] for k in ("x", "w_up", "w_gate", "w_down")}
+    for tp in grid.TP_DEGREES:
+        topo = new_lane_topology(2, 8 // (2 * tp), replicas=tp)
+        comm = LaneComm(topo.model)
+        for label, fn in (("mlp_tp", mlp_tp), ("mlp_tp_reduce",
+                                                mlp_tp_reduce),
+                          ("mlp", None)):
+            def call(x, a, b, c, fn=fn):
+                p = {"w_up": a, "w_gate": b, "w_down": c}
+                return mlp(p, x, cfg) if fn is None else \
+                    fn(p, x, cfg, comm=comm)
+            res = grads(call, named, (inp["dy"],))
+            for key, v in zip(names, res):
+                out[f"tp{tp}/{label}/{key}"] = v.numpy()
+    cfg = resolve("dbrx-132b", smoke=True)
+    e = {k: torch.from_numpy(v) for k, v in
+         grid.ep_inputs(cfg.d_model, cfg.d_ff, cfg.num_experts).items()}
+    topo = new_lane_topology(*grid.EP_TOPO, replicas=2)
+    comm, g = LaneComm(topo), topo.global_rank()
+    named = {"x": e["x"][g], "router": e["router"], "w_up": e["w_up"],
+             "w_gate": e["w_gate"], "w_down": e["w_down"]}
+    cot = (e["dy"][g], torch.tensor(grid.EP_AUX_COT))
+    keys = ("y", "aux", "dx", "drouter", "dw_up", "dw_gate", "dw_down")
+    for label, blocks in [*((f"ep{b}", b) for b in grid.EP_BLOCKS),
+                          ("gather", 0)]:
+        def call(x, r, a, b, c, blocks=blocks):
+            p = {"router": r, "w_up": a, "w_gate": b, "w_down": c}
+            return moe_block(p, x, cfg) if blocks == 0 else \
+                moe_block_ep(p, x, cfg, comm=comm, ep_blocks=blocks)
+        for key, v in zip(keys, grads(call, named, cot)):
+            out[f"{label}/{key}"] = v.numpy()
+    return out
+
+
+def tp_ep_train_rank(tmp, npz_by_arch, runs, serve_argv):
+    """On an 8-rank world, for each ``(name, argv, action)`` of ``runs``
+    in turn: ``launch.train.run(argv)`` from the ``repro``-layout
+    weights of its arch (``npz_by_arch``), with ``{tmp}`` in ``argv``
+    replaced by ``tmp``; ``action`` (or None), done on rank 0 between a
+    barrier before the run and one after it, is ``("copy", src, dst,
+    drop)``: copy the checkpoint directory ``src`` to ``dst`` without its
+    step ``drop``.  Then the tokens of ``serve_argv`` = ``(arch, kind,
+    slots)`` under replicated hosting and under ``lane_zero3`` on a
+    (2 x 2) x 2 topology at model_parallel 1 and 2.  Returns ({name:
+    (losses, params digest)}, {hosting label: tokens})."""
+    import shutil
+    import torch.distributed as dist
+    from repro_torch.bridge import params_from_repro
+    from repro_torch.configs import resolve
+    from repro_torch.launch.mesh import new_lane_topology
+    from repro_torch.launch.train import params_digest, run
+    out = {}
+    for name, argv, action in runs:
+        argv = [a.replace("{tmp}", tmp) for a in argv]
+        if action is not None:
+            dist.barrier()
+            if dist.get_rank() == 0:
+                _, src, dst, drop = action
+                src, dst = (pathlib.Path(a.replace("{tmp}", tmp))
+                            for a in (src, dst))
+                shutil.copytree(src, dst)
+                shutil.rmtree(dst / f"step_{drop}")
+            dist.barrier()
+        arch = argv[argv.index("--arch") + 1]
+        params = params_from_repro(load_tree(npz_by_arch[arch]),
+                                   resolve(arch, smoke=True), device="cpu")
+        losses, params, _ = run(argv, params=params)
+        out[name] = (losses, params_digest(params))
+    arch, kind, slots = serve_argv
+    cfg = resolve(arch, smoke=True)
+    params = params_from_repro(load_tree(npz_by_arch[arch]), cfg,
+                               device="cpu")
+    topo = new_lane_topology(2, 2, replicas=2)
+    tokens = {"replicated": _serve_tokens(params, cfg, kind,
+                                          slots=slots)[0]}
+    for tp in (1, 2):
+        tokens[f"lane_zero3 tp{tp}"] = _serve_tokens(
+            params, cfg, kind, slots=2 * slots, hosting="lane_zero3",
+            topo=topo, model_parallel=tp)[0]
+    return out, tokens

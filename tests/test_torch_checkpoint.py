@@ -252,8 +252,24 @@ def test_zero3_layout_elastic_roundtrip_bit_identical():
     np.testing.assert_array_equal(b.to_canonical(("blocks",), mb), canon)
     with pytest.raises(ValueError, match="layer_elems"):
         b.check_manifest({**a.manifest_entry(), "layer_elems": 99})
-    with pytest.raises(NotImplementedError, match="item 10"):
-        Zero3CheckpointLayout(3, 100, 2, 4, ep=True)
+    # the expert-parallel flavour builds, records itself, and refuses a
+    # restore across the flavour with repro's error
+    ep = Zero3CheckpointLayout(3, 100, 2, 4, ep=True)
+    jep = JZero3(3, 100, 2, 4, ep=True)
+    assert ep.manifest_entry() == jep.manifest_entry()
+    assert ep.manifest_entry()["ep"] is True
+    ep.check_manifest(jep.manifest_entry())
+    for layout, other, jl, jo in ((a, ep, JZero3(
+            3, 100, 2, 4), jep), (ep, a, jep, JZero3(
+            3, 100, 2, 4))):
+        with pytest.raises(ValueError) as mine:
+            layout.check_manifest(other.manifest_entry())
+        with pytest.raises(ValueError) as theirs:
+            jl.check_manifest(jo.manifest_entry())
+        assert str(mine.value) == str(theirs.value)
+    # the experts' natural-shape leaves pass through as they are
+    leaf = rng.normal(size=(3, 4, 5)).astype(np.float32)
+    assert ep.to_canonical(("experts", "w_up"), leaf) is leaf
 
 
 # ---------------------------------------------------------------------------

@@ -33,3 +33,43 @@ def test_shapes_equal():
 def test_unknown_arch_raises():
     with pytest.raises(KeyError):
         tcfg.resolve("no-such-arch")
+
+
+def _run_error(make, **kw):
+    try:
+        make(**kw)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+# the third axis's validation: (gradsync, arch, RunConfig keywords)
+RUN_ERRORS = [
+    ("lane_zero1", "llama3.2-3b", {"model_parallel": 2}),
+    ("lane_quorum", "llama3.2-3b", {"model_parallel": 2}),
+    ("lane", "llama3.2-3b", {"model_parallel": 0}),
+    ("lane", "llama3.2-3b", {"ep_blocks": 0}),
+    ("lane", "llama3.2-3b", {"expert_parallel": True}),
+    ("lane_quorum", "dbrx-132b", {"expert_parallel": True}),
+]
+
+
+@pytest.mark.parametrize("gradsync,arch,kw", RUN_ERRORS,
+                         ids=[f"{g}-{a}-{next(iter(k))}"
+                              for g, a, k in RUN_ERRORS])
+def test_run_config_third_axis_errors_equal_repros(gradsync, arch, kw):
+    """``RunConfig``'s TP/EP validation raises ``repro``'s errors."""
+    want = _run_error(lambda **k: jcfg.RunConfig(
+        model=jcfg.resolve(arch, smoke=True), shape=jcfg.SHAPES["train_4k"],
+        gradsync=gradsync, **k), **kw)
+    got = _run_error(lambda **k: tcfg.RunConfig(
+        model=tcfg.resolve(arch, smoke=True), gradsync=gradsync, **k), **kw)
+    assert want is not None and got == want
+
+
+def test_run_config_third_axis_accepted():
+    cfg = tcfg.resolve("dbrx-132b", smoke=True)
+    run = tcfg.RunConfig(model=cfg, gradsync="lane_zero3", model_parallel=2,
+                         expert_parallel=True, ep_blocks=2)
+    assert (run.model_parallel, run.expert_parallel, run.ep_blocks) == \
+        (2, True, 2)

@@ -9,8 +9,8 @@
   ``repro``'s on 4 host devices (a subprocess, ``_repro_lane_side.py``):
   exactly for integer-valued gradients, at 1e-6 for random ones, and
   ``lane_int8`` within its half-step bound of the exact mean.
-* The cells of later ROADMAP items raise NotImplementedError naming them;
-  the ZeRO cells resolve.
+* Every cell ``repro`` registers resolves (the ZeRO, quorum, splice and
+  ``moe_route`` cells).
 """
 import dataclasses
 import subprocess
@@ -22,13 +22,13 @@ import pytest
 import torch
 
 from repro.comm import LaneComm as JLaneComm
+from repro.comm import strategies_for as jstrategies_for
 from repro.comm import costs as jcosts
 from repro.core import LaneTopology as JLaneTopology
 from repro.core import costmodel as jcm
 from repro.optim import gradsync as jgs
-from repro_torch.comm import CommConfig, LaneComm, get_impl
+from repro_torch.comm import CommConfig, LaneComm, get_impl, strategies_for
 from repro_torch.comm import costs as tcosts
-from repro_torch.comm.registry import UNPORTED
 from repro_torch.core import costmodel as tcm
 from repro_torch.core.lane import LaneTopology
 from repro_torch.launch import mesh
@@ -193,8 +193,10 @@ def test_hw_defaults_are_an_h100_hosts():
 # ---------------------------------------------------------------------------
 
 def test_unported_cells_name_their_items():
-    """What stays unported names its item (``moe_route``: 10); the ZeRO,
-    ``lane_quorum`` and ``kv_splice`` cells resolve."""
+    """Every cell ``repro`` registers resolves: the ZeRO, ``lane_quorum``,
+    ``kv_splice`` and ``moe_route`` cells (at p = 1 with no world the
+    route is the identity); an unknown strategy lists the registered
+    ones."""
     topo = LaneTopology(1, 1, lane_rank=0, node_rank=0, node_group=None,
                         lane_group=None, group=None, node_ranks=[0],
                         lane_ranks=[0], ranks=[0])
@@ -203,7 +205,6 @@ def test_unported_cells_name_their_items():
     assert entry.strategy == "lane_quorum" and not entry.auto_ok
     assert entry.feasible(2, 3, 4) and not entry.feasible(2, 3, 5)
     assert CommConfig(strategy="lane_quorum").strategy == "lane_quorum"
-    assert "lane_quorum" not in [s for _, s in UNPORTED]
     for strategy in ("lane_zero1", "lane_zero3"):
         assert get_impl("grad_sync", strategy).strategy == strategy
         assert CommConfig(strategy=strategy).strategy == strategy
@@ -212,8 +213,13 @@ def test_unported_cells_name_their_items():
     x = torch.zeros(4)
     for strategy in ("native", "lane"):
         assert get_impl("kv_splice", strategy).strategy == strategy
-    with pytest.raises(NotImplementedError, match="item 10"):
-        comm.moe_route(x)
+    assert strategies_for("moe_route") == jstrategies_for("moe_route")
+    for strategy in ("native", "lane", None):
+        y = comm.moe_route(x + 1, strategy=strategy)
+        assert torch.equal(y, x + 1)
+    assert comm.last_selection.collective == "moe_route"    # auto, priced
+    assert comm.moe_route(x, strategy="lane", async_op=True).wait() \
+        .equal(x)
     with pytest.raises(ValueError, match="registered strategies"):
         get_impl("allreduce", "lane_zero9")
     for strategy in ("native", "lane", "lane_pipelined", "lane_int8",

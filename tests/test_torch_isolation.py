@@ -63,6 +63,19 @@ def test_the_tuner_is_covered():
         "guideline_report.py", "probe.py", "tune_smoke.py"}
 
 
+def test_the_third_axis_is_covered():
+    """Tensor and expert parallelism are part of the port, and so of the
+    checks below."""
+    from repro_torch.models import layers, moe, parallel
+    assert "repro_torch.models.parallel" in set(_modules())
+    assert {f.name for f in FILES if f.parent.name == "models"} >= {
+        "parallel.py", "layers.py", "moe.py", "transformer.py"}
+    for name in ("mlp_tp", "mlp_tp_reduce"):
+        assert callable(getattr(layers, name))
+    assert callable(moe.moe_block_ep)
+    assert callable(parallel.parallel_context)
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.name)
 def test_no_jax_or_repro_import(path):
     tree = ast.parse(path.read_text(), filename=str(path))

@@ -415,16 +415,23 @@ def test_train_main_microbatch_and_remat_on_cpu():
     np.testing.assert_allclose(a, b, rtol=1e-5)
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--model-parallel", "2"], "item 10"),
-    (["--expert-parallel"], "item 10"),
-    (["--ep-blocks", "2"], "item 10"),
+@pytest.mark.parametrize("flags", [
+    ["--model-parallel", "2"],          # one process: no model axis of 2
+    ["--expert-parallel"],              # llama has no experts
+    ["--ep-blocks", "0"],
 ])
-def test_train_main_unported_flags_raise(flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        train.main(["--arch", "llama3.2-3b", "--smoke", "--steps", "1",
-                    "--batch", "2", "--seq", "8", "--device", "cpu",
-                    *flags])
+def test_train_main_unported_flags_raise(flags):
+    """The third axis's flags are ported: on one process these raise
+    ``repro``'s training loop's errors (the mesh rule, ``RunConfig``'s
+    validation)."""
+    import repro.launch.train as jtrain
+    argv = ["--arch", "llama3.2-3b", "--smoke", "--steps", "1", "--batch",
+            "2", "--seq", "8", *flags]
+    with pytest.raises(ValueError) as want:
+        jtrain.main(argv)
+    with pytest.raises(ValueError) as got:
+        train.main([*argv, "--device", "cpu"])
+    assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("flags", [
