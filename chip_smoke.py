@@ -116,12 +116,13 @@ and the script exits non-zero:
      one-rank NCCL world, built with ``single=False`` on its 1 x 1
      topology: the code every rank of a multi-pod world runs, with node
      and lane groups of one process (before 8d):
-     (a) llama3.2-3b and mamba2-780m at full width cut to 2 layers, f32,
-     1 x 256 tokens, 3 steps each of lane_zero1, lane_zero3 (prefetch),
+     (a) llama3.2-3b at full width cut to 2 layers, f32, 1 x 256
+     tokens, 2 steps each of lane_zero1, lane_zero3 (prefetch),
      --fsdp-regather and --fsdp-prefetch -1 on the card against
-     lane_zero3 on the CPU (a gloo group of the same rank):
-     every loss within 1e-5, the parameters after the last step within
-     1e-3 lr at all but 1% of the elements;
+     lane_zero3 on the CPU (a gloo group of the same rank): every loss
+     within 1e-5, the parameters after the last step within 1e-3 lr at
+     all but 1% of the elements (mamba2-780m's ZeRO state is held by 9b
+     and 10a, its f32 step against the CPU's by 7b);
      (b) 5 bf16 steps at full width, 4 x 1024 tokens, AdamW unclipped:
      llama3.2-3b replicated (native), lane_zero1, lane_zero3 (prefetch),
      regather and blocking, and mamba2-780m replicated and lane_zero3,
@@ -227,12 +228,33 @@ and the script exits non-zero:
      --ckpt-every 2`` (the ep layout), step 3 removed, then ``--gradsync
      lane``, resumed at step 2 into the replicated layout through the
      canonical form: its step-3 loss within 1e-6 of the uninterrupted
-     run's.
+     run's;
+ 14. lanelint's collective recorder (``analysis/footprint.py``) and the
+     serving smoke leg (``serve/serve_smoke.py``) on phase 13's one-rank
+     world and 1 x 1 topology:
+     (a) one bf16 step of llama3.2-3b at full width, 4 x 1024 tokens,
+     ``--gradsync lane``, under ``record_collectives()``, then the next
+     step without it (both after a first, untimed step): K1 28 in the
+     recorded step, every recorded op on
+     CUDA tensors, the sync's calls and issued bytes by kind those of the
+     ``lane`` cell's K buckets over the padded f32 flat buffer (12.85 GB:
+     K reduce-scatters of the buckets, K all-reduces and K all-gathers of
+     their stripes), the wire 0 at every level (p = 1), R1 clean; both
+     step times printed (the recorder's cost, not gated); then one
+     ``lane_zero3`` decode step (4 slots) under the recorder: 28 layer
+     gathers, R1 clean, wire 0;
+     (b) ``serve_smoke.run_scenarios`` at full width, bf16, seed-0 weights,
+     4 slots, max_seq 1024, for llama3.2-3b and mamba2-780m over the
+     kinds phase 5 does not serve (short_chat, long_context, bursty; 5
+     requests each): every request finished with a reason and a
+     first-token time, K1 28 per llama prefill and K2 48 per mamba2
+     prefill, counted from the requests; tok/s per kind printed (a smoke
+     reading over the wall time, prefills included: not a decode rate).
 
 Both kernels choose by dtype inside their C entry point: bf16 (the
 serving and training paths) runs on the tensor cores, f32 on the CUDA
 cores.  The line before the last is a JSON object with K1's and K2's
-numbers (launches per path, the training runs and phases 10 to 13
+numbers (launches per path, the training runs and phases 10 to 14
 included);
 the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -286,6 +308,10 @@ from repro_torch.checkpoint import (REPLICATED, CheckpointCorruptError,  # noqa:
                                     save_checkpoint)
 from repro_torch.checkpoint.store import host_array  # noqa: E402
 from repro_torch.serve import load_serve_params  # noqa: E402
+from repro_torch.serve.serve_smoke import run_scenarios  # noqa: E402
+from repro_torch.analysis import record_collectives  # noqa: E402
+from repro_torch.analysis.rules import (SMALL_GLOBAL_BYTES,  # noqa: E402
+                                        check_step_footprint)
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12         # dense tensor-core peak, bf16
@@ -1939,8 +1965,7 @@ def phase_lane_cpu() -> None:
 
 
 def phase_lanes(name, first_loss, served) -> dict:
-    """Phases 8, 9, 10, 11, 12 and 13 on one NCCL world (8d on the CPU
-    after it)."""
+    """Phases 8 to 14 on one NCCL world (8d on the CPU after it)."""
     topo, init = timed("8a lane world", phase_lane_world)
     try:
         timed("8b lane conformance", phase_lane_conformance, topo)
@@ -1959,6 +1984,9 @@ def phase_lanes(name, first_loss, served) -> dict:
         torch.cuda.empty_cache()
         launches.update(timed("13 tensor and expert parallelism",
                               phase_tp_ep, topo, name))
+        torch.cuda.empty_cache()
+        launches.update(timed("14 the recorder and serve_smoke",
+                              phase_lint_smoke, topo, name))
     finally:
         dist.destroy_process_group()
         init.unlink(missing_ok=True)
@@ -1977,7 +2005,15 @@ ZERO_MODES = {"replicated": ("native", 0, False),
               "lane_zero3": ("lane_zero3", 0, False),
               "regather": ("lane_zero3", 0, True),
               "blocking": ("lane_zero3", -1, False)}
-ZERO_CHECK_STEPS = 3
+ZERO_CHECK_STEPS = 2
+# 9a holds llama3.2-3b alone, the f32 card against the CPU: mamba2-780m's
+# ZeRO state is held on the card by 9b (lane_zero3 at full width equal
+# to "masters" at every step) and 10a (replicated, lane_zero1 and
+# lane_zero3 saved, restored and resumed bit for bit), its f32 step
+# against the CPU's by 7b; and the gather code is the family-agnostic
+# block stack's
+ZERO_CHECK_ARCHS = ("llama3.2-3b",)
+ZERO_CHECK_MODES = ("lane_zero1", "lane_zero3", "regather", "blocking")
 # 9b: 5 bf16 steps at 4 x 1024 tokens, AdamW with no clipping (the clip
 # norm is still computed): the one rounding that tells the layouts
 # apart is the clip norm's sum, taken in another order by each (PERF.md
@@ -2077,16 +2113,16 @@ def zero_run(cfg, mode, topo, params, *, steps_n, batch, seq, device, opt,
 
 
 def phase_zero_check(topo) -> None:
-    """9a: llama3.2-3b and mamba2-780m at full width cut to CHECK_LAYERS
-    layers, f32, 1 x CHECK_T tokens, ZERO_CHECK_STEPS steps of
-    lane_zero1, lane_zero3 (prefetch), --fsdp-regather and
-    --fsdp-prefetch -1 on the card (NCCL, one rank) against the same
-    steps on the CPU (a gloo group of the same one rank): every loss
-    within CARD_LOSS_TOL, and the parameters after the last step within
+    """9a: ZERO_CHECK_ARCHS at full width cut to CHECK_LAYERS
+    layers, f32, 1 x CHECK_T tokens, ZERO_CHECK_STEPS steps of each of
+    ZERO_CHECK_MODES on the card (NCCL, one rank) against lane_zero3 on
+    the CPU (a gloo group of the same one rank): every loss within
+    CARD_LOSS_TOL, and the parameters after the last step within
     UPDATE_TOL x lr of the CPU's at all but FLIP_SHARE of the elements.
     The CPU runs lane_zero3 once: its modes, and lane_zero1, are the same
     f32 arithmetic up to the order of the global norm's sum (pinned on
-    the CPU, 4 ranks, by tests/test_torch_train_zero.py)."""
+    the CPU, 4 ranks, by tests/test_torch_train_zero.py).  The weights
+    go to the card once and each mode starts from a copy made there."""
     cpu_group = dist.new_group([0], backend="gloo")
     cpu_topo = LaneTopology(1, 1, lane_rank=0, node_rank=0,
                             node_group=cpu_group, lane_group=cpu_group,
@@ -2094,21 +2130,21 @@ def phase_zero_check(topo) -> None:
                             ranks=[0])
     opt = AdamWConfig(warmup_steps=0, total_steps=ZERO_CHECK_STEPS)
     kw = dict(steps_n=ZERO_CHECK_STEPS, batch=1, seq=CHECK_T, opt=opt)
-    for arch in TRAIN_ARCHS:
+    for arch in ZERO_CHECK_ARCHS:
         cfg = dataclasses.replace(resolve(arch), num_layers=CHECK_LAYERS,
                                   dtype="float32")
         params0 = init_model(cfg, seed=0, device="cpu")
         before = {p: t.clone() for p, t in _tree.flatten(params0)}
+        on_card = _tree.tree_map(lambda t: t.to("cuda"), params0)
         t0 = time.perf_counter()
-        want, _, full, _ = zero_run(
-            cfg, "lane_zero3", cpu_topo,
-            _tree.tree_map(torch.clone, params0), device="cpu", **kw)
+        want, _, full, _ = zero_run(cfg, "lane_zero3", cpu_topo, params0,
+                                    device="cpu", **kw)
         want_p, t_cpu = dict(_tree.flatten(full)), time.perf_counter() - t0
-        del full
-        for mode in ("lane_zero1", "lane_zero3", "regather", "blocking"):
+        del full, params0
+        for mode in ZERO_CHECK_MODES:
             fa.launches = k2.launches = 0
             losses, _, full, gathers = zero_run(
-                cfg, mode, topo, _tree.tree_map(torch.clone, params0),
+                cfg, mode, topo, _tree.tree_map(torch.clone, on_card),
                 device="cuda", **kw)
             torch.cuda.synchronize()
             e_l = max(abs(a - b) / max(abs(b), 1e-12)
@@ -2131,6 +2167,8 @@ def phase_zero_check(topo) -> None:
                                    f"disagree with the CPU's")
             del full, got_p
             torch.cuda.empty_cache()
+        del on_card
+        torch.cuda.empty_cache()
     dist.destroy_process_group(cpu_group)
 
 
@@ -3264,6 +3302,172 @@ def phase_tp_ep(topo, name) -> dict:
     finally:
         shutil.rmtree(root, ignore_errors=True)
         log("time", f"phase 13: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the collective recorder and the serving smoke leg at full width
+# ---------------------------------------------------------------------------
+
+LINT_ARCH = "llama3.2-3b"
+SMOKE_KINDS = ("short_chat", "long_context", "bursty")   # phase 5: mixed
+SMOKE_ARCHS = ("llama3.2-3b", "mamba2-780m")
+
+
+def _sync_kinds(foot, K, flat_bytes, n) -> dict:
+    """{kind: (calls, issued bytes)} of the recorded ops above the scalar
+    exemption, and the same for the ``lane`` cell's K buckets over the
+    padded f32 flat buffer of ``flat_bytes``: RS(node) of each bucket,
+    AR(lane) and AG(node) of its 1/n stripe."""
+    got = {}
+    for op in foot.ops:
+        if op.payload_bytes > SMALL_GLOBAL_BYTES:
+            c, b = got.get(op.kind, (0, 0))
+            got[op.kind] = (c + 1, b + int(op.payload_bytes))
+    want = {"reduce-scatter": (K, flat_bytes),
+            "all-reduce": (K, flat_bytes // n),
+            "all-gather": (K, flat_bytes // n)}
+    return got, want
+
+
+def phase_recorder(topo, name) -> dict:
+    """14a: one bf16 step of LINT_ARCH at full width, TRAIN_BATCH x
+    TRAIN_SEQ tokens, --gradsync lane, under ``record_collectives``, then
+    one without it (after a first, untimed step); then one lane_zero3
+    decode step under the recorder."""
+    cfg = resolve(LINT_ARCH)
+    run = RunConfig(model=cfg, gradsync="lane")
+    comm = LaneComm(topo, CommConfig.from_run(run))
+    opt = AdamWConfig(warmup_steps=0, total_steps=3)
+    step = steps.build_train_step(run, opt, comm, single=False)
+    params = init_model(cfg, seed=0, device="cuda")
+    total = sum(t.numel() for t in _tree.leaves(params))
+    K = gradsync.resolve_num_buckets(total, topo.n(), comm.cfg.buckets)
+    flat_bytes = 4 * (total + (-total) % (K * topo.n()))
+    state, opt_state, _ = steps.init_lane_train_state(
+        run, params, comm, single=False, device="cuda")
+    del params
+    loader = make_loader(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    ms, launches, bad = {}, {"flash_attention": 0, "ssd": 0}, []
+    # a first step unrecorded and untimed, so that neither timed step is
+    # the first on this state
+    for s, recorded in enumerate((False, True, False)):
+        toks, labels = (torch.as_tensor(a, device="cuda")
+                        for a in loader.batch_at(s))
+        torch.cuda.synchronize()
+        fa.launches = k2.launches = 0
+        t0 = time.perf_counter()
+        with (record_collectives() if recorded
+              else contextlib.nullcontext()) as rec:
+            loss, state, opt_state = step(state, opt_state, toks, labels)
+            torch.cuda.synchronize()
+        ms[recorded] = (time.perf_counter() - t0) * 1e3
+        launches["flash_attention"] += fa.launches
+        launches["ssd"] += k2.launches
+        if not np.isfinite(float(loss)):
+            bad.append(f"step {s}: loss {float(loss)}")
+        if recorded:
+            k1 = fa.launches
+            foot = rec.footprint(n=topo.n(), num_devices=topo.p())
+    got, want = _sync_kinds(foot, K, flat_bytes, topo.n())
+    devices = {op.device for op in foot.ops}
+    r1 = check_step_footprint("train_step/lane", foot)
+    log("lint", f"{name} | {LINT_ARCH} bf16 step, {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}, --gradsync lane (K={K}, flat f32 "
+        f"{flat_bytes / 1e9:.2f} GB): recorded {len(foot)} ops, kinds "
+        f"{foot.kind_counts()}, devices {sorted(devices)}, sync calls and "
+        f"issued bytes {got} (want {want}), wire {foot.by_level()}, R1 "
+        f"{[f.message for f in r1]}, K1 {k1} (want {cfg.num_layers}); step "
+        f"ms with the recorder {ms[True]:.1f}, without {ms[False]:.1f}")
+    if k1 != cfg.num_layers:
+        bad.append(f"K1 {k1} in the recorded step")
+    if devices != {"cuda"}:
+        bad.append(f"recorded ops on {devices}")
+    if got != want:
+        bad.append(f"sync {got} != {want}")
+    if foot.wire() != 0:
+        bad.append(f"wire {foot.by_level()} at p = 1")
+    if r1:
+        bad.append(f"R1: {r1}")
+    del opt_state
+    torch.cuda.empty_cache()
+    serve = build_serve_step(cfg, max_seq=1024, slots=SLOTS,
+                             hosting="lane_zero3", device="cuda", topo=topo)
+    hosted = serve.prepare(state)
+    del state
+    sstate = serve.init_state()
+    prompt = torch.arange(1, 65, device="cuda").reshape(1, 64)
+    fa.launches = k2.launches = 0
+    _, st1 = serve.prefill(hosted, prompt, 64)
+    serve.splice(sstate, st1, 0)
+    g0 = serve.gathers()
+    with record_collectives() as rec:
+        serve.decode(hosted, np.ones((SLOTS, 1), np.int64), sstate)
+        torch.cuda.synchronize()
+    gathers = serve.gathers() - g0
+    launches["flash_attention"] += fa.launches
+    launches["ssd"] += k2.launches
+    dfoot = rec.footprint(n=topo.n(), num_devices=topo.p())
+    r1 = check_step_footprint("serve_step/lane_zero3:decode", dfoot)
+    log("lint", f"{name} | {LINT_ARCH} lane_zero3 decode step ({SLOTS} "
+        f"slots) under the recorder: {len(dfoot)} ops, kinds "
+        f"{dfoot.kind_counts()}, layer gathers {gathers} (want "
+        f"{cfg.num_layers}), devices "
+        f"{sorted({op.device for op in dfoot.ops})}, wire {dfoot.wire()}, "
+        f"R1 {[f.message for f in r1]}")
+    if gathers != cfg.num_layers or r1 or dfoot.wire() != 0 \
+            or {op.device for op in dfoot.ops} != {"cuda"}:
+        bad.append(f"lane_zero3 decode: gathers {gathers}, R1 {r1}")
+    del hosted, sstate, st1
+    torch.cuda.empty_cache()
+    if bad:
+        raise RuntimeError("; ".join(bad))
+    return {f"recorder {LINT_ARCH}": launches}
+
+
+def phase_smoke_scenarios(name) -> dict:
+    """14b: ``serve_smoke.run_scenarios`` at full width, bf16, on phase
+    5's seed-0 weights, SLOTS slots, max_seq SCENARIO_POSITIONS, over the
+    kinds phase 5 does not serve: every request finishes with a reason
+    and a first-token time, and each kernel runs once per layer and
+    prefill."""
+    out, bad = {}, []
+    for arch in SMOKE_ARCHS:
+        cfg = resolve(arch)
+        params = init_model(cfg, seed=0, device="cuda")
+        fa.launches = k2.launches = 0
+        res = run_scenarios(cfg, params, SMOKE_KINDS, slots=SLOTS,
+                            max_seq=SCENARIO_POSITIONS, device="cuda")
+        torch.cuda.synchronize()
+        got = {"flash_attention": fa.launches, "ssd": k2.launches}
+        prefills = sum(len(done) for done, _ in res.values())
+        want = expected_launches(cfg, prefills)
+        log("smoke", f"{name} | {arch} scenarios {SMOKE_KINDS}: "
+            + ", ".join(f"{k} {st['decode_tokens']} tok "
+                        f"{st['tok_per_s']:.1f} smoke tok/s"
+                        for k, (_, st) in res.items())
+            + f"; launches {got} (want {want}, {prefills} prefills)")
+        if got != want:
+            bad.append(f"{arch}: launches {got} != {want}")
+        out[f"smoke scenarios {arch}"] = got
+        del params, res
+        torch.cuda.empty_cache()
+    if bad:
+        raise RuntimeError("; ".join(bad))
+    return out
+
+
+def phase_lint_smoke(topo, name) -> dict:
+    """Phase 14."""
+    t0 = time.perf_counter()
+    try:
+        with torch.enable_grad():
+            launches = timed("14a the recorder on the card", phase_recorder,
+                             topo, name)
+        launches.update(timed("14b serve_smoke scenarios at full width",
+                              phase_smoke_scenarios, name))
+    finally:
+        log("time", f"phase 14: {time.perf_counter() - t0:.1f} s")
     return launches
 
 

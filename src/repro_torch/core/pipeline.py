@@ -135,9 +135,16 @@ def pipelined_reduce_lane(x, topo: LaneTopology, *, num_blocks: int,
     xb = x.reshape(B, n * s, *rest)
     out = torch.zeros((B, s, *rest), dtype=torch.float32, device=x.device)
     buf = None                                    # received last step
+    sent = []                                     # last step's send
     for t in range(pipeline_steps(B, N)):
         b = t - (N - 1 - j)                       # block forwarded at step t
         held = 0 <= b < B
+        # the next block's partial is received while this step's node
+        # phase runs, and this step's send stays in flight through the
+        # next one's
+        nxt = out.new_empty((s, *rest)) if j < N - 1 and 0 <= b + 1 < B \
+            else None
+        works = _p2p(topo, recv=nxt, frm=j + 1)
         part = None
         if held:                                  # fold the node dimension
             mine = xb[b].to(torch.float32).contiguous()
@@ -147,11 +154,11 @@ def pipelined_reduce_lane(x, topo: LaneTopology, *, num_blocks: int,
                 part += buf
             if j == 0:
                 out[b] = part
-        nxt = out.new_empty((s, *rest)) if j < N - 1 and 0 <= b + 1 < B \
-            else None
-        _wait(_p2p(topo, send=part if held and j > 0 else None, to=j - 1,
-                   recv=nxt, frm=j + 1))
-        buf = nxt
+        sending = _p2p(topo, send=part if held and j > 0 else None,
+                       to=j - 1)
+        _wait(works + sent)
+        sent, buf = sending, nxt
+    _wait(sent)
     full = out.new_empty((B, n * s, *rest))
     for b in range(B):
         dist.all_gather_into_tensor(full[b], out[b], group=topo.node_group)

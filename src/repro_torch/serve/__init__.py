@@ -4,12 +4,12 @@ from .engine import (ContinuousBatcher, Request, termination_reason,
                      DEFAULT_BUCKETS)
 from .sampling import GREEDY, SamplerConfig, sample_token
 from .steps import (ServeContext, ServeStep, build_serve_step,
-                    load_serve_params)
-from .scenarios import make_scenario, SCENARIO_KINDS
+                    load_serve_params, serve_hostings)
+from .scenarios import make_scenario, scenario_families, SCENARIO_KINDS
 
 __all__ = [
     "ContinuousBatcher", "Request", "termination_reason", "DEFAULT_BUCKETS",
     "GREEDY", "SamplerConfig", "sample_token",
     "ServeContext", "ServeStep", "build_serve_step", "load_serve_params",
-    "make_scenario", "SCENARIO_KINDS",
+    "serve_hostings", "make_scenario", "scenario_families", "SCENARIO_KINDS",
 ]

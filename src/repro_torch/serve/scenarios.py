@@ -3,9 +3,10 @@
 Counterpart of ``repro.serve.scenarios``: the same numpy request mixes,
 drawn from the same seed sequence in the same order, so both packages
 serve byte-identical requests, extras included.  ``repro`` keys its
-generators on a registry of families; here one generator serves every
-family, and adds the synthesized extras of the vlm (patches) and audio
-(frames) requests.
+generators on a registry of families, and so does the port: each family
+is a ``("serve_scenario", family)`` cell (``scenario_families`` lists
+them), the plain families drawing prompts only, vlm and audio adding
+the synthesized patches or frames in ``Request.extra``.
 
 Kinds (``SCENARIO_KINDS``):
 
@@ -22,13 +23,20 @@ import zlib
 
 import numpy as np
 
+from repro_torch.comm.registry import (get_impl, has_impl, register_impl,
+                                       strategies_for)
 from repro_torch.configs.base import ModelConfig
 
 from .engine import Request
 
-__all__ = ["SCENARIO_KINDS", "make_scenario"]
+__all__ = ["SCENARIO_KINDS", "make_scenario", "scenario_families"]
 
 SCENARIO_KINDS = ("short_chat", "long_context", "bursty", "mixed")
+
+
+def scenario_families() -> tuple:
+    """Families the serving tier supports (derived from the registry)."""
+    return strategies_for("serve_scenario")
 
 
 def _lengths(kind: str, budget: int, n: int,
@@ -87,31 +95,46 @@ def _requests(cfg: ModelConfig, *, kind: str, n: int, seed: int,
     return reqs
 
 
-# the families with a generator (every family of the zoo)
-_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+def _register_plain(family: str):
+    @register_impl("serve_scenario", family, auto_ok=False)
+    def _cell(cfg, *, kind, n, seed, max_seq):
+        return _requests(cfg, kind=kind, n=n, seed=seed, max_seq=max_seq)
+    return _cell
 
 
-def _extra_fn(cfg: ModelConfig):
-    """The draw of each request's Request.extra: vlm patch embeddings
-    (vision_tokens, d_model), audio frame embeddings (encoder_seq,
-    d_model); None for the families that serve plain prompts."""
-    n = {"vlm": cfg.vision_tokens, "audio": cfg.encoder_seq}.get(cfg.family)
-    if n is None:
-        return None
+for _fam in ("dense", "moe", "ssm", "hybrid"):
+    _register_plain(_fam)
+
+
+def _gaussian(rows: int, cfg: ModelConfig):
     return lambda rng: rng.standard_normal(
-        (n, cfg.d_model)).astype(np.float32) * 0.02
+        (rows, cfg.d_model)).astype(np.float32) * 0.02
+
+
+@register_impl("serve_scenario", "vlm", auto_ok=False)
+def _scenario_vlm(cfg, *, kind, n, seed, max_seq):
+    """Patch embeddings (vision_tokens, d_model) ride in Request.extra."""
+    return _requests(cfg, kind=kind, n=n, seed=seed, max_seq=max_seq,
+                     extra_fn=_gaussian(cfg.vision_tokens, cfg))
+
+
+@register_impl("serve_scenario", "audio", auto_ok=False)
+def _scenario_audio(cfg, *, kind, n, seed, max_seq):
+    """Frame embeddings (encoder_seq, d_model) ride in Request.extra."""
+    return _requests(cfg, kind=kind, n=n, seed=seed, max_seq=max_seq,
+                     extra_fn=_gaussian(cfg.encoder_seq, cfg))
 
 
 def make_scenario(cfg: ModelConfig, *, kind: str, n: int, seed: int,
                   max_seq: int) -> list:
-    """``n`` deterministic Requests for ``cfg.family`` (ValueError on a
-    family without a generator here, or an unknown kind)."""
+    """``n`` deterministic Requests for ``cfg.family`` (ValueError on an
+    unregistered family or kind)."""
     if kind not in SCENARIO_KINDS:
         raise ValueError(f"unknown scenario kind {kind!r}; one of "
                          f"{SCENARIO_KINDS}")
-    if cfg.family not in _FAMILIES:
+    if not has_impl("serve_scenario", cfg.family):
         raise ValueError(
-            f"no serving scenario for family {cfg.family!r}; have "
-            f"{_FAMILIES}")
-    return _requests(cfg, kind=kind, n=n, seed=seed, max_seq=max_seq,
-                     extra_fn=_extra_fn(cfg))
+            f"no serving scenario for family {cfg.family!r}; registered: "
+            f"{scenario_families()}")
+    return get_impl("serve_scenario", cfg.family).fn(
+        cfg, kind=kind, n=n, seed=seed, max_seq=max_seq)

@@ -1,10 +1,10 @@
 """Serving steps: the ``replicated`` and ``lane_zero3`` hostings, and
 serving weights from a checkpoint.
 
-Counterpart of ``repro.serve.steps``.  ``repro`` resolves each hosting
-flavour from its ``("serve_step", ...)`` registry and jits four entry
-points; here each hosting is a plain table entry and the entry points
-run eagerly:
+Counterpart of ``repro.serve.steps``.  Each hosting flavour is a
+``("serve_step", hosting)`` registry cell, ``build_serve_step`` resolves
+through the registry and ``serve_hostings`` lists the cells, as in
+``repro``, which jits the entry points; here they run eagerly:
 
   replicated   every process holds the whole weights (the one-card
                baseline, and the only hosting of the hybrid family).
@@ -19,7 +19,8 @@ run eagerly:
                prefill runs on every process from the gathered weights,
                and its fresh state goes into its slot through the
                ``kv_splice`` collective.  Each decode's logits are
-               all-gathered in global-rank order, so every process sees
+               all-gathered in global-rank order (the full-lane
+               ``allgather``), so every process sees
                every slot's row and the engines sample and admit in
                lockstep.  With ``model_parallel`` > 1 the topology is one
                replica of a world whose model axis is TP wide: the
@@ -50,11 +51,11 @@ from typing import Callable, Optional
 
 import torch
 
-import torch.distributed as dist
-
 from repro_torch import _tree
 from repro_torch._device import resolve_device
 from repro_torch.comm import CommConfig, LaneComm
+from repro_torch.comm.registry import (get_impl, has_impl, register_impl,
+                                       strategies_for)
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.lane import LaneTopology
 from repro_torch.models import (ServeState, decode_step, init_cache,
@@ -67,7 +68,7 @@ from repro_torch.models.layers import torch_dtype
 from repro_torch.models.parallel import parallel_context
 from repro_torch.models.transformer import check_family
 
-__all__ = ["ServeContext", "ServeStep", "build_serve_step", "HOSTINGS",
+__all__ = ["ServeContext", "ServeStep", "build_serve_step", "serve_hostings",
            "load_serve_params"]
 
 
@@ -149,6 +150,7 @@ def _splice_tree(big, small, slot):
             _splice_leaf(leaf, small[name], slot)
 
 
+@register_impl("serve_step", "replicated", auto_ok=False)
 def _serve_replicated(ctx: ServeContext) -> ServeStep:
     cfg, dev = ctx.cfg, ctx.device
 
@@ -184,6 +186,7 @@ def _serve_replicated(ctx: ServeContext) -> ServeStep:
                      prefill=_prefill, decode=_decode, splice=_splice)
 
 
+@register_impl("serve_step", "lane_zero3", auto_ok=False)
 def _serve_zero3(ctx: ServeContext) -> ServeStep:
     from repro_torch.launch.steps import zero3_stack_layouts
     cfg, dev, topo = ctx.cfg, ctx.device, ctx.topo
@@ -281,10 +284,9 @@ def _serve_zero3(ctx: ServeContext) -> ServeStep:
                                         state)
         if p == 1:
             return logits, state
-        out = logits.new_empty((ctx.slots, *logits.shape[1:]))
-        dist.all_gather_into_tensor(out, logits.contiguous(),
-                                    group=topo.group)
-        return out, state
+        # every slot's row on every process, in global-rank order, by the
+        # full-lane all-gather (AG(lane) then AG(node))
+        return comm.allgather(logits.contiguous(), strategy="lane"), state
 
     @torch.no_grad()
     def _splice(state, st1, slot):
@@ -306,7 +308,10 @@ def _serve_zero3(ctx: ServeContext) -> ServeStep:
         gathers=lambda: gather_b.gathers)
 
 
-HOSTINGS = {"replicated": _serve_replicated, "lane_zero3": _serve_zero3}
+def serve_hostings() -> tuple:
+    """Registered serve_step hostings, in registration order (the derived
+    table benches/tests enumerate)."""
+    return strategies_for("serve_step")
 
 
 def build_serve_step(cfg: ModelConfig, *, max_seq: int, slots: int,
@@ -316,9 +321,10 @@ def build_serve_step(cfg: ModelConfig, *, max_seq: int, slots: int,
                      model_parallel: int = 1) -> ServeStep:
     """Build ``hosting`` for ``cfg`` on ``device`` (``lane_zero3``: over
     ``topo``; see ``ServeContext``)."""
-    if hosting not in HOSTINGS:
-        raise ValueError(f"unknown serving hosting {hosting!r}; have "
-                         f"{tuple(HOSTINGS)}")
+    if not has_impl("serve_step", hosting):
+        raise ValueError(
+            f"unknown serving hosting {hosting!r}; registered: "
+            f"{serve_hostings()}")
     if model_parallel > 1 and hosting != "lane_zero3":
         raise ValueError(
             f"model_parallel > 1 needs hosting='lane_zero3' (got "
@@ -330,7 +336,7 @@ def build_serve_step(cfg: ModelConfig, *, max_seq: int, slots: int,
                        prefetch_blocks=int(prefetch_blocks),
                        kv_strategy=kv_strategy,
                        model_parallel=int(model_parallel))
-    return HOSTINGS[hosting](ctx)
+    return get_impl("serve_step", hosting).fn(ctx)
 
 
 # ---------------------------------------------------------------------------

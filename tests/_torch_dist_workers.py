@@ -945,3 +945,45 @@ def tp_ep_train_rank(tmp, npz_by_arch, runs, serve_argv):
             params, cfg, kind, slots=2 * slots, hosting="lane_zero3",
             topo=topo, model_parallel=tp)[0]
     return out, tokens
+
+
+def lint_cells_rank(n, N):
+    """lanelint's cell sweep of the (n, N) topology on this rank, its live
+    negative controls, and the recorder's restore after an exception:
+    ({target: footprint}, {control: footprint}, restored)."""
+    import torch.distributed as dist
+
+    from repro_torch.analysis import record_collectives
+    from repro_torch.analysis.rules import (CellCase, LOCAL_ELEMS,
+                                            iter_cell_cases, run_cell)
+    from repro_torch.core import collectives as C
+    from repro_torch.launch.mesh import new_lane_topology
+    topo = new_lane_topology(n, N)
+    cells = {case.target: run_cell(topo, case)
+             for case in iter_cell_cases(((n, N),))}
+
+    def whole_world(comm, x):
+        return C.native_allreduce(x, comm.topo)
+
+    def serial_blocks(comm, x, *, num_blocks):
+        return torch.cat([C.allreduce_lane(b, comm.topo)
+                          for b in x.chunk(num_blocks)])
+
+    c = LOCAL_ELEMS * 4
+    controls = {
+        "whole_world": run_cell(topo, CellCase("allreduce", "lane", n, N, c),
+                                whole_world),
+        "serial": run_cell(topo, CellCase(
+            "allreduce", "lane_pipelined", n, N, c, (("num_blocks", 4),)),
+            serial_blocks)}
+    names = ("all_reduce", "batch_isend_irecv", "P2POp", "isend", "barrier")
+    before = {k: getattr(dist, k) for k in names}
+    try:
+        with record_collectives():
+            dist.all_reduce(torch.ones(4), group=topo.group)
+            raise KeyError("inside the recorder")
+    except KeyError:
+        pass
+    restored = all(getattr(dist, k) is before[k] for k in names)
+    return cells, controls, restored
+

@@ -76,6 +76,21 @@ def test_the_third_axis_is_covered():
     assert callable(parallel.parallel_context)
 
 
+def test_the_lint_is_covered():
+    """lanelint and the serving smoke leg are part of the port, and so of
+    the checks below."""
+    names = set(_modules())
+    assert {f"repro_torch.analysis.{m}" for m in (
+        "diagnostics", "baseline", "footprint", "rules", "steps", "astlint",
+        "lint")} | {"repro_torch.analysis",
+                    "repro_torch.serve.serve_smoke"} <= names
+    assert {f.name for f in FILES if f.parent.name == "analysis"} == {
+        "__init__.py", "diagnostics.py", "baseline.py", "footprint.py",
+        "rules.py", "steps.py", "astlint.py", "lint.py"}
+    from repro_torch.analysis.astlint import run_ast_rules
+    assert run_ast_rules() == []
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.name)
 def test_no_jax_or_repro_import(path):
     tree = ast.parse(path.read_text(), filename=str(path))
