@@ -141,15 +141,14 @@ and the script exits non-zero:
      ``kv_splice``, ``load_serve_params``), on phase 9's one-rank world,
      its checkpoint directories under build/ removed at the end, also on
      failure; free disk and host RAM printed first:
-     (a) llama3.2-3b (lane_zero3) and mamba2-780m (replicated,
-     lane_zero1, lane_zero3) at full width cut to 2 layers, f32: 2 steps,
-     the state saved from the card and from a CPU copy (identical
-     ``arr_<i>.npy`` files and manifest step, layout and leaves),
-     restored into its own layout (equal to the state saved) with step 3
-     from it equal to the uninterrupted step 3, and into the other
-     layouts (mamba2 every pair, llama lane_zero3 into replicated) with
-     the canonical form bit-identical; one flipped byte: an explicit step
-     raises CheckpointCorruptError, step=None falls back;
+     (a) mamba2-780m (replicated, lane_zero1, lane_zero3) at full width
+     cut to 2 layers, f32: 2 steps, the state saved from the card and
+     from a CPU copy (identical ``arr_<i>.npy`` files and manifest step,
+     layout and leaves), restored into its own layout (equal to the
+     state saved) with step 3 from it equal to the uninterrupted step 3,
+     and into every other layout with the canonical form bit-identical;
+     one flipped byte: an explicit step raises CheckpointCorruptError,
+     step=None falls back (llama3.2-3b's layouts are 15b's);
      (b) mamba2-780m, bf16, 4 x 1024, ``launch.train.run --gradsync
      lane_zero3 --ckpt --ckpt-every 2`` for 4 steps, step 4 removed, the
      run again (resumed at 2): steps 3-4 equal; per save the loop's
@@ -249,12 +248,36 @@ and the script exits non-zero:
      requests each): every request finished with a reason and a
      first-token time, K1 28 per llama prefill and K2 48 per mamba2
      prefill, counted from the requests; tok/s per kind printed (a smoke
-     reading over the wall time, prefills included: not a decode rate).
+     reading over the wall time, prefills included: not a decode rate);
+ 15. the launch layer (``launch/dryrun.py``'s planner,
+     ``launch/train_smoke.py``, ``launch/tp_smoke.py``, the
+     ``("train_step", ...)`` registry cells) on phase 14's one-rank world
+     and 1 x 1 topology, its checkpoint directories under build/ removed
+     at the end, also on failure:
+     (a) the planner's state bytes at full width: for llama3.2-3b under
+     the replicated layout (native), lane_zero1 and lane_zero3, and
+     granite-moe-3b-a800m under lane_zero3 --expert-parallel, the growth
+     of ``torch.cuda.memory_allocated()`` across ``init_model`` and
+     ``init_lane_train_state`` (the init tree dropped) within 0.5% of
+     ``dryrun.train_state_bytes`` at p = 1, one layout built and freed at
+     a time; after the replicated state, one bf16 step at 4 x 1024 and its
+     peak printed beside the planned state (no gate; K1 28);
+     (b) ``train_smoke``'s 11 cells (every ``train_step`` flavor on
+     llama3.2-3b --smoke, lane_zero3 on each driver-trainable family's
+     smoke arch), each a fresh 2-step run committing step 2 and a resumed
+     3-step run committing step 3 through ``launch.train.run`` with
+     ``--device cuda``: every cell passes, K1 (f32, hd 16) once per
+     attention layer and step and K2 once per Mamba2 layer and step (3
+     steps a cell), printed per cell;
+     (c) ``tp_smoke``'s three expert-parallel cells on dbrx-132b --smoke
+     (``ep_lane``, ``ep_zero3``, ``ep_zero3_blocks2``) at p = 1, fresh
+     and resumed, K1 3 steps x L; and a TP cell refused with its reason
+     (one GPU: NCCL refuses two ranks on one card).
 
 Both kernels choose by dtype inside their C entry point: bf16 (the
 serving and training paths) runs on the tensor cores, f32 on the CUDA
 cores.  The line before the last is a JSON object with K1's and K2's
-numbers (launches per path, the training runs and phases 10 to 14
+numbers (launches per path, the training runs and phases 10 to 15
 included);
 the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -312,6 +335,9 @@ from repro_torch.serve.serve_smoke import run_scenarios  # noqa: E402
 from repro_torch.analysis import record_collectives  # noqa: E402
 from repro_torch.analysis.rules import (SMALL_GLOBAL_BYTES,  # noqa: E402
                                         check_step_footprint)
+from repro_torch.launch import dryrun, tp_smoke, train_smoke  # noqa: E402
+from repro_torch.launch.dryrun import (attention_pairs,  # noqa: E402
+                                       train_flops)
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12         # dense tensor-core peak, bf16
@@ -357,6 +383,10 @@ ATT_SHAPES = [
     (1, 2, 1, 512, 512, 128),
 ]
 MAIN_T = (32, 64, 128, 256, 512, 682)   # prefill buckets + an exact length
+# K1 at hd 16 (Tq, Tk, causal, window): the smoke training's T = 32 and 16,
+# a window, and Tq != Tk
+SMOKE_K1 = ((32, 32, True, 0), (16, 16, True, 0), (200, 200, True, 24),
+            (96, 160, True, 0), (64, 130, False, 0))
 SSD_SHAPES = [
     # b, H, T, P, S, chunk  (the kernel tests' shapes)
     (1, 4, 64, 32, 32, 16),
@@ -443,14 +473,6 @@ def compare(q, k, v, *, causal, window):
     tol = TOL[q.dtype]
     ok = bool((diff <= tol + tol * want.float().abs()).all())
     return float(diff.max()), ok
-
-
-def attention_pairs(Tq, Tk, causal, window):
-    """(q, k) pairs the masks keep: the work this input needs."""
-    qpos = np.arange(Tq)
-    hi = np.minimum(qpos + 1, Tk) if causal else np.full(Tq, Tk)
-    lo = np.maximum(qpos - window, 0) if window else np.zeros(Tq, int)
-    return int(np.clip(hi - lo, 0, None).sum())
 
 
 def k1_bound(q, k, *, causal, window):
@@ -789,6 +811,17 @@ def phase_kernel() -> float:
                              zc.hd(), torch.bfloat16, seed)
         case(f"Tq=387 Tk=792 hd{zc.hd()} bf16 "
              f"{'causal ' if causal else ''}window 96", q, k, v, causal, 96)
+    # hd 16, every --smoke config with attention (d_model 64 over 4 heads):
+    # the shapes phase 15's smoke training runs at, causal, windowed and
+    # Tq != Tk, both dtypes
+    for Tq, Tk, causal, window in SMOKE_K1:
+        for dtype in (torch.float32, torch.bfloat16):
+            seed += 1
+            q, k, v = qkv_inputs(8, 4, 2, Tq, Tk, 16, dtype, seed)
+            case(f"smoke B8 H4 K2 Tq{Tq} Tk{Tk} hd16 {str(dtype)[6:]} "
+                 f"{'causal' if causal else 'full'}"
+                 + (f" window {window}" if window else ""), q, k, v, causal,
+                 window)
     # granite-34b: 48 query heads on one K/V head; h2o-danube-3-4b: hd 120
     # (3840 / 32), its window of 4096 masking keys at T = 4300
     g34, dn = resolve("granite-34b"), resolve("h2o-danube-3-4b")
@@ -1566,18 +1599,6 @@ class StepClock:
         train.build_train_step = self.build
 
 
-def train_flops(cfg, batch: int, seq: int) -> float:
-    """Model FLOPs of one train step: 6 N per token (N the parameters, the
-    tied unembedding's product included) plus 3x the causal attention's
-    forward (QK^T and PV over the T(T+1)/2 pairs); the SSD scan's own
-    operations are left out."""
-    flops = 6 * cfg.param_count() * batch * seq
-    if cfg.family in ("dense", "moe", "vlm"):
-        flops += 3 * 4 * cfg.hd() * cfg.num_heads * cfg.num_layers * batch \
-            * attention_pairs(seq, seq, True, cfg.sliding_window)
-    return flops
-
-
 def phase_train(cfg, name) -> dict:
     """TRAIN_STEPS bf16 steps of ``cfg`` at full width through
     ``launch.train.main``, SyntheticLM seed 0, with the kernels' launch
@@ -1965,7 +1986,7 @@ def phase_lane_cpu() -> None:
 
 
 def phase_lanes(name, first_loss, served) -> dict:
-    """Phases 8 to 14 on one NCCL world (8d on the CPU after it)."""
+    """Phases 8 to 15 on one NCCL world (8d on the CPU after it)."""
     topo, init = timed("8a lane world", phase_lane_world)
     try:
         timed("8b lane conformance", phase_lane_conformance, topo)
@@ -1987,6 +2008,9 @@ def phase_lanes(name, first_loss, served) -> dict:
         torch.cuda.empty_cache()
         launches.update(timed("14 the recorder and serve_smoke",
                               phase_lint_smoke, topo, name))
+        torch.cuda.empty_cache()
+        launches.update(timed("15 the launch layer", phase_launch, topo,
+                              name))
     finally:
         dist.destroy_process_group()
         init.unlink(missing_ok=True)
@@ -2287,9 +2311,8 @@ def phase_zero_train(topo, name, first_loss) -> dict:
 CKPT_MODES = {"replicated": "native", "lane_zero1": "lane_zero1",
               "lane_zero3": "lane_zero3"}
 CKPT_ARCH = "mamba2-780m"
-# 10a's layouts per model (phase_ckpt_exact says why llama takes one)
-CKPT_EXACT = {"llama3.2-3b": ("lane_zero3",),
-              "mamba2-780m": tuple(CKPT_MODES)}
+# 10a's layouts per model (phase_ckpt_exact says why llama takes none)
+CKPT_EXACT = {"mamba2-780m": tuple(CKPT_MODES)}
 CKPT_ARGV = ["--arch", CKPT_ARCH, "--batch", str(TRAIN_BATCH), "--seq",
              str(TRAIN_SEQ), "--device", "cuda", "--log-every", "1"]
 SERVE_ARCH = "llama3.2-3b"
@@ -2342,28 +2365,27 @@ def ckpt_layout(cfg, mode):
 
 
 def phase_ckpt_exact(topo, root) -> None:
-    """10a: llama3.2-3b and mamba2-780m at full width cut to CHECK_LAYERS
-    layers, f32, 1 x CHECK_T tokens, in the layouts of CKPT_EXACT
-    (``single=False`` on the 1 x 1 topology): 2 steps on the card, the
-    state saved from the card and, copied to the CPU, into a second
-    directory (identical files and manifests); restored on the card into
-    its own layout (equal to the state saved, leaf for leaf) and step 3
-    taken from it against the uninterrupted step 3 (exact; if not, a
-    second uninterrupted run says how far apart two runs are, and the
-    resumed step may be no further); restored into the other layouts
-    (mamba2-780m: every pair; llama3.2-3b: lane_zero3 into replicated),
-    each restore's canonical form bit-identical to the saved one's; and
-    on mamba2-780m's lane_zero3 checkpoint one flipped byte: an explicit
-    step raises CheckpointCorruptError, step=None falls back to the
-    earlier step.  llama3.2-3b's 2-layer state is 7.2 GB (its 394 M-row
-    embedding and its moments), and the host moves ~1 GB/s on the card's
-    machine (PERF.md §5), so it takes lane_zero3 alone, the
-    layout whose shards it exercises; mamba2-780m (1.3 GB) takes all
-    three."""
+    """10a: mamba2-780m at full width cut to CHECK_LAYERS layers, f32, 1 x
+    CHECK_T tokens, in the layouts of CKPT_EXACT (``single=False`` on the
+    1 x 1 topology): 2 steps on the card, the state saved from the card
+    and, copied to the CPU, into a second directory (identical files and
+    manifests); restored on the card into its own layout (equal to the
+    state saved, leaf for leaf) and step 3 taken from it against the
+    uninterrupted step 3 (exact; if not, a second uninterrupted run says
+    how far apart two runs are, and the resumed step may be no further);
+    restored into every other layout, each restore's canonical form
+    bit-identical to the saved one's; and on its lane_zero3 checkpoint
+    one flipped byte: an explicit step raises CheckpointCorruptError,
+    step=None falls back to the earlier step.  llama3.2-3b's 2-layer
+    state is 7.2 GB (its 394 M-row embedding and its moments), and the
+    host moves ~1 GB/s on the card's machine (PERF.md §5): its save,
+    restore and resume in every layout are phase 15b's, at smoke width
+    on this world, and its lane_zero3 checkpoint served at full width is
+    10c's."""
     opt = AdamWConfig(warmup_steps=0, total_steps=3)
     modes = list(CKPT_MODES)
     bad = []
-    for arch in TRAIN_ARCHS:
+    for arch in CKPT_EXACT:
         cfg = dataclasses.replace(resolve(arch), num_layers=CHECK_LAYERS,
                                   dtype="float32")
         loader = make_loader(cfg, CHECK_T, 1, seed=0)
@@ -2421,8 +2443,7 @@ def phase_ckpt_exact(topo, root) -> None:
                 bad.append(f"{arch} {mode}: files {diff}, restore equal "
                            f"{same}, step 3 apart {apart:.3e}")
             torch.cuda.empty_cache()
-        pairs = [(a, b) for a in modes for b in modes if a != b] \
-            if arch == CKPT_ARCH else [("lane_zero3", "replicated")]
+        pairs = [(a, b) for a in modes for b in modes if a != b]
         for src in dict.fromkeys(a for a, _ in pairs):
             d = root / arch / src / "card"
             want = canonical(d, cfg)
@@ -3468,6 +3489,163 @@ def phase_lint_smoke(topo, name) -> dict:
                               phase_smoke_scenarios, name))
     finally:
         log("time", f"phase 14: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the launch layer
+# ---------------------------------------------------------------------------
+
+# (arch, gradsync, expert_parallel): 15a's layouts
+STATE_RUNS = (("llama3.2-3b", "native", False),
+              ("llama3.2-3b", "lane_zero1", False),
+              ("llama3.2-3b", "lane_zero3", False),
+              ("granite-moe-3b-a800m", "lane_zero3", True))
+STATE_TOL = 5e-3
+SMOKE_STEPS = 3       # a cell's fresh 2 steps and its resumed third
+
+
+def _launch_root() -> pathlib.Path:
+    return pathlib.Path(__file__).resolve().parent / "build" / "launch_smoke"
+
+
+def phase_state_bytes(topo, name) -> dict:
+    """15a: each layout of STATE_RUNS at full width, bf16, built alone on
+    the card: its allocation against the planner's state bytes."""
+    bad, launches = [], {}
+    for arch, gradsync, ep in STATE_RUNS:
+        cfg = resolve(arch)
+        run = RunConfig(model=cfg, gradsync=gradsync, expert_parallel=ep)
+        comm = LaneComm(topo, CommConfig.from_run(run))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        p, o, _ = steps.init_lane_train_state(
+            run, init_model(cfg, seed=0, device="cuda"), comm, single=False,
+            device="cuda")
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - base
+        plan = dryrun.train_state_bytes(run, *topo.sizes())
+        want = sum(plan.values())
+        rel = held / want - 1
+        label = f"{arch} {gradsync}" + (" --expert-parallel" if ep else "")
+        log("launch", f"{name} | {label}: state on the card {held / 1e9:.3f}"
+            f" GB, planned {want / 1e9:.3f} GB ("
+            + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in plan.items() if v)
+            + f"), {rel:+.2e} (gate {STATE_TOL:g})")
+        if not abs(rel) <= STATE_TOL:
+            bad.append(f"{label}: {held} B held, {want} B planned")
+        if gradsync == "native":
+            step = steps.build_train_step(run, AdamWConfig(), comm,
+                                          single=False)
+            tok, lab = (torch.as_tensor(a, device="cuda") for a in
+                        make_loader(cfg, TRAIN_SEQ, TRAIN_BATCH,
+                                    seed=0).batch_at(0))
+            torch.cuda.reset_peak_memory_stats()
+            fa.launches = k2.launches = 0
+            with torch.enable_grad():
+                loss = float(step(p, o, tok, lab)[0])
+            torch.cuda.synchronize()
+            launches["state 15a step"] = {"flash_attention": fa.launches,
+                                          "ssd": k2.launches}
+            peak = torch.cuda.max_memory_allocated() - base
+            log("launch", f"{name} | {label}: one step at {TRAIN_BATCH} x "
+                f"{TRAIN_SEQ}: loss {loss:.4f}, peak {peak / 1e9:.3f} GB "
+                f"beside the planned state {want / 1e9:.3f} GB (activations "
+                f"not planned), K1 {fa.launches}")
+            if not np.isfinite(loss) or fa.launches != cfg.num_layers:
+                bad.append(f"{label} step: loss {loss}, K1 {fa.launches}")
+            del step
+        del p, o, comm
+        torch.cuda.empty_cache()
+    if bad:
+        raise RuntimeError("; ".join(bad))
+    return launches
+
+
+def smoke_launches(arch: str) -> dict:
+    """K1 and K2 launches of one smoke cell: once per attention layer and
+    Mamba2 layer a step, SMOKE_STEPS steps."""
+    cfg = resolve(arch, smoke=True)
+    attn = {"dense": cfg.num_layers, "moe": cfg.num_layers,
+            "hybrid": cfg.num_layers // max(cfg.hybrid_attn_every, 1)}
+    return {"flash_attention": SMOKE_STEPS * attn.get(cfg.family, 0),
+            "ssd": SMOKE_STEPS * (cfg.num_layers if cfg.family in
+                                  ("ssm", "hybrid") else 0)}
+
+
+def phase_train_smoke(topo, name, root) -> dict:
+    """15b: every train_smoke cell on this world, its launches counted."""
+    total = {"flash_attention": 0, "ssd": 0}
+    bad = []
+    cells = train_smoke.cells()
+    for cell, _, _, arch in cells:
+        fa.launches = k2.launches = 0
+        t0 = time.perf_counter()
+        fails, resumed = train_smoke.sweep(str(root / "train"),
+                                           device="cuda", topo=topo,
+                                           only=(cell,))
+        got = {"flash_attention": fa.launches, "ssd": k2.launches}
+        want = smoke_launches(arch)
+        log("launch", f"{name} | train-smoke {cell} ({arch} --smoke, f32): "
+            f"{'PASS' if not fails else 'FAIL'} in "
+            f"{time.perf_counter() - t0:.1f} s, resumed step-3 loss "
+            f"{resumed.get(cell)!r}, launches {got} (want {want})")
+        if fails or got != want:
+            bad.append(cell)
+        for k in total:
+            total[k] += got[k]
+    log("launch", f"train-smoke on the card: {len(cells) - len(bad)}/"
+        f"{len(cells)} cells OK" + (f"; FAILED {bad}" if bad else ""))
+    if bad or len(cells) != 11:
+        raise RuntimeError(f"train-smoke cells failed: {bad}")
+    return {"train_smoke": total}
+
+
+def phase_tp_smoke(topo, name, root) -> dict:
+    """15c: tp_smoke's expert-parallel cells on this world; a TP cell is
+    refused on one GPU."""
+    total = {"flash_attention": 0, "ssd": 0}
+    for cell in tp_smoke.EP_CELLS:
+        fa.launches = k2.launches = 0
+        t0 = time.perf_counter()
+        losses = tp_smoke.run_tp_cell(cell, str(root / "tp"),
+                                      device="cuda", topo=topo)
+        got = {"flash_attention": fa.launches, "ssd": k2.launches}
+        want = smoke_launches("dbrx-132b")
+        log("launch", f"{name} | tp-smoke {cell} (dbrx-132b --smoke, f32, "
+            f"p = 1): PASS in {time.perf_counter() - t0:.1f} s, resumed "
+            f"step-3 loss {losses[0]!r}, launches {got} (want {want})")
+        if got != want or not np.isfinite(losses[0]):
+            raise RuntimeError(f"{cell}: launches {got}, want {want}")
+        for k in total:
+            total[k] += got[k]
+    try:
+        tp_smoke.run_tp_cell("tp2_lane[dense]", str(root / "tp"),
+                             device="cuda", topo=topo)
+    except ValueError as e:
+        log("launch", f"tp-smoke tp2_lane[dense] refused on one GPU: {e}")
+    else:
+        raise RuntimeError("a TP = 2 cell ran on a one-GPU world")
+    return {"tp_smoke ep": total}
+
+
+def phase_launch(topo, name) -> dict:
+    """Phase 15."""
+    t0 = time.perf_counter()
+    root = _launch_root()
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        launches = timed("15a planned state bytes", phase_state_bytes, topo,
+                         name)
+        with torch.enable_grad():
+            launches.update(timed("15b train_smoke", phase_train_smoke,
+                                  topo, name, root))
+            launches.update(timed("15c tp_smoke EP cells", phase_tp_smoke,
+                                  topo, name, root))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        log("time", f"phase 15: {time.perf_counter() - t0:.1f} s")
     return launches
 
 

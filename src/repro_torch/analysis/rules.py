@@ -65,8 +65,8 @@ R2_ABS_TOL = 512.0         # scalar side-channels (quorum denominator)
 SMALL_GLOBAL_BYTES = 1024  # R1 scalar exemption (loss mean, grad norm)
 
 #: the communication collectives the cell sweep drives (the registry also
-#: carries builders — block_stack, serve_step, serve_scenario — which
-#: are not collectives)
+#: carries builders — block_stack, serve_step, serve_scenario,
+#: train_step — which are not collectives)
 COMM_COLLECTIVES = ("allreduce", "reduce_scatter", "allgather", "alltoall",
                     "moe_route", "scan", "bcast", "reduce", "gather",
                     "scatter", "grad_sync", "prefetch_allgather",

@@ -1,6 +1,6 @@
 """Config registry: importing this package registers all assigned archs."""
 from .base import ModelConfig, RunConfig, ShapeConfig, SHAPES, resolve, \
-    all_archs, register
+    all_archs, cells, register
 
 # one module per assigned architecture (import = register)
 from . import h2o_danube3_4b    # noqa: F401
@@ -15,4 +15,4 @@ from . import llava_next_mistral_7b  # noqa: F401
 from . import whisper_large_v3  # noqa: F401
 
 __all__ = ["ModelConfig", "RunConfig", "ShapeConfig", "SHAPES", "resolve",
-           "all_archs", "register"]
+           "all_archs", "cells", "register"]

@@ -1,13 +1,14 @@
 """Model configs, input-shape presets and the arch registry.
 
 The port's own copy of ``repro.configs.base`` (``ModelConfig``,
-``ShapeConfig``, ``SHAPES`` and ``register``/``resolve``/``all_archs``),
-kept field for field so both packages resolve the same numbers.  Every
-arch module registers a ``ModelConfig`` with the published numbers plus a
-reduced ``smoke()`` variant of the same family.  ``RunConfig`` holds
-the training knobs of ``repro``'s that the port honours (the dry-run
-planner's ``fsdp``, ``plan``, ``scan_layers`` and ``decode_seq_shard``
-have no counterpart here).
+``ShapeConfig``, ``SHAPES`` and ``register``/``resolve``/``all_archs``/
+``cells``), kept field for field so both packages resolve the same
+numbers.  Every arch module registers a ``ModelConfig`` with the
+published numbers plus a reduced ``smoke()`` variant of the same family.
+``RunConfig`` holds the training knobs of ``repro``'s that the port
+honours; the dry-run plan's ``shape``, ``fsdp`` and ``plan`` live on
+``launch.dryrun.Plan``, and ``scan_layers`` and ``decode_seq_shard``
+have no counterpart here.
 """
 from __future__ import annotations
 
@@ -246,3 +247,12 @@ def resolve(arch_id: str, smoke: bool = False) -> ModelConfig:
 def all_archs() -> list[str]:
     import repro_torch.configs as _  # noqa: F401
     return sorted(_REGISTRY)
+
+
+def cells(arch_id: str) -> list[str]:
+    """The shape presets this arch runs (long_500k only if sub-quadratic)."""
+    cfg = resolve(arch_id)
+    out = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.subquadratic:
+        out.append("long_500k")
+    return out

@@ -68,6 +68,8 @@
 // exactly (120 = 15 of them); the last 16-column ldmatrix of V feeds only
 // its first n-tile, and only hd columns are stored.  Global rows stay
 // 16-byte aligned (240 bytes = 15 chunks).
+// Head dim 16 (every --smoke config: d_model 64 over 4 heads) is one
+// k-step of q . k^T and two 8-wide n-tiles of P . V, with no padding.
 // Where it rounds: q, k and v are bf16 inputs and their products are exact
 // in f32; S, m, l and the accumulator are f32 sums; the scale is one f32
 // multiply after the product (the TPU scales q before it, an f32
@@ -285,6 +287,9 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
                         int causal, int window, float scale,
                         cudaStream_t stream) {
   switch (hd) {
+    case 16:  // every --smoke config with attention: d_model 64, 4 heads
+      return launch<T, 16>(q, k, v, o, B, H, KH, Tq, Tk, causal, window,
+                           scale, stream);
     case 32:
       return launch<T, 32>(q, k, v, o, B, H, KH, Tq, Tk, causal, window,
                            scale, stream);
@@ -585,6 +590,9 @@ cudaError_t dispatch_bf16(const void* q, const void* k, const void* v,
     return cudaErrorMisalignedAddress;
   if ((Tq + BQ - 1) / BQ > 65535) return cudaErrorInvalidValue;
   switch (hd) {
+    case 16:  // one k-step of m16n8k16, two 8-wide n-tiles
+      return launch_bf16<16>(q, k, v, o, B, H, KH, Tq, Tk, causal, window,
+                             scale, stream);
     case 32:
       return launch_bf16<32>(q, k, v, o, B, H, KH, Tq, Tk, causal, window,
                              scale, stream);

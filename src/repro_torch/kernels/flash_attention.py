@@ -32,7 +32,7 @@ from ._build import Library
 LIBRARY = Library("flash_attention", {"repro_flash_attention_fwd": (
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
     + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int)})
-HEAD_DIMS = (32, 64, 112, 120, 128)
+HEAD_DIMS = (16, 32, 64, 112, 120, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 ALIGN = 16            # the bf16 kernel copies 16-byte chunks
 

@@ -25,10 +25,18 @@ level ``data``.  Each ``model`` index gets its own copy of the groups.
     group (its tensor-parallel peers) comes with it, as ``topology.model``.
   * :func:`spawn` runs a function on a world of local processes (gloo on
     the CPU), for tests and the CPU rehearsal of multi-rank training.
+  * :func:`make_production_mesh` and :func:`make_debug_mesh` are
+    ``repro.launch.mesh``'s meshes as pure descriptors (:class:`MeshSpec`:
+    axis names and shape, no process group), with :func:`batch_axes`,
+    :func:`mesh_sizes` and :func:`lane_sizes`, the ``(n, N, tp)`` of the
+    topology :func:`make_lane_topology` would build on such a mesh (the
+    dry-run planner, ``launch.dryrun``, reads them).
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
+import math
 import os
 import pathlib
 import tempfile
@@ -41,7 +49,8 @@ from repro_torch.core.lane import LaneTopology
 
 __all__ = ["init_world", "world_size", "mesh_shape", "mesh_axes",
            "resolve_pods", "new_lane_topology", "make_lane_topology",
-           "spawn"]
+           "spawn", "MeshSpec", "make_production_mesh", "make_debug_mesh",
+           "batch_axes", "mesh_sizes", "lane_sizes"]
 
 _TIMEOUT = datetime.timedelta(seconds=300)
 
@@ -235,6 +244,66 @@ def make_lane_topology(batch: int = 1 << 30, pods: int = 1, tp: int = 1):
     if P > 1:
         return new_lane_topology(d, P, replicas=m), False
     return new_lane_topology(1, d, replicas=m), True
+
+
+# ---------------------------------------------------------------------------
+# mesh descriptors: repro's production and debug meshes, no process group
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MeshSpec:
+    """A mesh as names and sizes: ``axis_names`` and ``shape``, the world
+    rank its flat (row-major) index, as ``mesh_axes`` lays it out."""
+    axis_names: tuple
+    shape: tuple
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshSpec:
+    """``repro``'s production mesh: 16 x 16 ranks a pod, ``("data",
+    "model")``; the multi-pod mesh adds the outer ``"pod"`` axis (2, 16,
+    16).  Axis roles: ``pod`` the lane level, ``data`` the batch within a
+    pod (the node level), ``model`` tensor parallelism."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return MeshSpec(axes, shape)
+
+
+def make_debug_mesh(*, multi_pod: bool = False) -> MeshSpec:
+    """The small mesh with the same axis names: (2, 4), or (2, 2, 2)."""
+    shape = (2, 2, 2) if multi_pod else (2, 4)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return MeshSpec(axes, shape)
+
+
+def batch_axes(mesh: MeshSpec) -> tuple:
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def mesh_sizes(mesh: MeshSpec) -> dict:
+    return dict(zip(mesh.axis_names, mesh.shape))
+
+
+def lane_sizes(mesh: MeshSpec, *, gradsync: str = "auto",
+               tp: "int | None" = None):
+    """``(n, N, tp)`` of the topology :func:`make_lane_topology` builds on
+    ``mesh``'s world: ``tp`` (default the model axis) pins the model
+    axis, the pods are the mesh's pod axis or, without one,
+    :func:`resolve_pods`'s answer for ``gradsync`` (``lane_zero3`` splits
+    a pod-less data axis into 2 lanes, as ``launch.train`` does with
+    ``--pods 0``); one pod gives ``repro``'s single-batch-axis topology,
+    n = 1 and N = d."""
+    sizes = mesh_sizes(mesh)
+    tp = sizes.get("model", 1) if tp is None else tp
+    pods = sizes.get("pod", 0)
+    world = mesh.size
+    if not pods:
+        pods = resolve_pods(0, gradsync, world // tp)
+    P, d, m = mesh_shape(world, pods=pods, tp=tp)
+    return (d, P, m) if P > 1 else (1, d, m)
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,11 @@ and the ZeRO steps.
 
 Counterpart of ``repro.launch.steps``' ``train_step`` flavors, with its
 ``_make_loss``, ``_accum_dtype``, ``_microbatched`` and ``_adamw_flat``.
-The flavor follows the parameter layout ``run.gradsync`` registers
-(``comm.layout``):
+Each flavor is one ``("train_step", strategy)`` registry cell, under
+``repro``'s eight names in its order (``native``, ``lane``,
+``lane_pipelined``, ``lane_int8`` and ``auto`` the replicated step, then
+``lane_quorum``, ``lane_zero1``, ``lane_zero3``), and keeps the parameter
+layout its strategy registers (``comm.layout``):
 
   replicated  value and gradient of ``loss_fn`` (optionally over
               microbatches), the gradient sync, then AdamW.  Across
@@ -73,6 +76,7 @@ from repro_torch.checkpoint import (REPLICATED, CheckpointCorruptError,
 from repro_torch.checkpoint.store import host_array, to_torch
 from repro_torch.comm import LaneComm
 from repro_torch.comm.layout import param_layout_kind
+from repro_torch.comm.registry import get_impl, register_impl
 from repro_torch.core import collectives as C
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.lane import LaneTopology
@@ -224,20 +228,16 @@ def build_train_step(run: RunConfig, opt: AdamWConfig,
     None.  ``step.full_params(params)`` is the whole parameter tree of
     the state (gathered under zero3).
 
-    ``comm``: None on one process; across ranks, the ``LaneComm`` of the
-    world's topology (``launch.mesh.make_lane_topology``), each rank
-    passing its own rows of the global batch.  ``single``: the topology
-    has one batch axis, where the replicated strategies degrade to
-    ``"native"``, ``lane_zero1`` to the replicated step, and
-    ``lane_zero3`` raises."""
-    kind = layout_kind(run, single)
-    if kind == "zero3":
-        return _build_zero3(run, opt, comm, single)
-    if kind == "zero1":
-        return _build_zero1(run, opt, comm)
-    if run.gradsync == "lane_quorum":
-        return _build_quorum(run, opt, comm)
-    return _build_replicated(run, opt, comm, single)
+    The flavor is the ``("train_step", run.gradsync)`` registry cell
+    (``comm.strategies_for("train_step")``; the registrations stand
+    beside their builders below), called as ``fn(run, opt, comm,
+    single)``.  ``comm``: None on one process; across ranks, the
+    ``LaneComm`` of the world's topology
+    (``launch.mesh.make_lane_topology``), each rank passing its own rows
+    of the global batch.  ``single``: the topology has one batch axis,
+    where the replicated strategies degrade to ``"native"``,
+    ``lane_zero1`` to the replicated step, and ``lane_zero3`` raises."""
+    return get_impl("train_step", run.gradsync).fn(run, opt, comm, single)
 
 
 def _mean_loss(comm: LaneComm, loss):
@@ -246,6 +246,7 @@ def _mean_loss(comm: LaneComm, loss):
 
 
 def _build_replicated(run, opt, comm, single):
+    """Replicated-parameter step: full gradient sync, then tree AdamW."""
     tp_comm = _model_comm(run, comm)
     vg = _microbatched(_value_and_grad(_make_loss(run, comm, tp_comm)),
                        run.microbatch, _accum_dtype(run))
@@ -266,7 +267,12 @@ def _build_replicated(run, opt, comm, single):
     return step
 
 
-def _build_quorum(run, opt, comm):
+for _s in ("native", "lane", "lane_pipelined", "lane_int8", "auto"):
+    register_impl("train_step", _s, auto_ok=False)(_build_replicated)
+
+
+@register_impl("train_step", "lane_quorum", auto_ok=False)
+def _build_quorum(run, opt, comm, single=True):
     """The quorum-degraded replicated step, the DEGRADED rung of the
     recovery ladder: ``step(params, opt_state, tokens, labels, extra=None,
     quorum_mask=None)``.
@@ -427,13 +433,17 @@ def _clip_scale(opt: AdamWConfig, gnorm):
 # ZeRO-1
 # ---------------------------------------------------------------------------
 
-def _build_zero1(run, opt, comm):
+@register_impl("train_step", "lane_zero1", auto_ok=False)
+def _build_zero1(run, opt, comm, single=False):
     """ZeRO-1: node-sharded flat gradients and moments through AdamW; the
     paper's trailing all-gather moves past the update (same bytes,
     applied to the new parameters).  Exact against the replicated AdamW:
     the true global norm is one scalar all-reduce over the node group of
     the shards' squares (disjoint over the node level, the same on every
-    lane), and the decay follows ``decay_mask_flat``."""
+    lane), and the decay follows ``decay_mask_flat``.  On a single batch
+    axis it is the replicated step (``layout_kind``)."""
+    if single:
+        return get_impl("train_step", "native").fn(run, opt, comm, single)
     topo = comm.topo
     n = topo.n()
     vg = _microbatched(_value_and_grad(_make_loss(run, comm)),
@@ -556,7 +566,8 @@ def zero3_opt_init(cfg: ModelConfig, params, n: int, N: int,
     return out
 
 
-def _build_zero3(run, opt, comm, single):
+@register_impl("train_step", "lane_zero3", auto_ok=False)
+def _build_zero3(run, opt, comm, single=False):
     """ZeRO-3/FSDP: the layer stack stays sharded 1/p and is gathered
     LAYER BY LAYER inside the forward (``scan_stack`` over a
     ``ShardedStack``: the pipelined AG(lane)→AG(node) of

@@ -126,7 +126,7 @@ import torch.distributed as dist
 from repro_torch import _tree
 from repro_torch._device import resolve_device
 from repro_torch.checkpoint import AsyncCheckpointer, latest_step
-from repro_torch.comm import CommConfig, LaneComm
+from repro_torch.comm import CommConfig, LaneComm, strategies_for
 from repro_torch.configs import RunConfig, resolve
 from repro_torch.core.costmodel import get_hw, set_hw
 from repro_torch.data import make_loader
@@ -173,11 +173,11 @@ def _parser() -> argparse.ArgumentParser:
                     choices=("float32", "bfloat16"),
                     help="microbatch gradient accumulator precision")
     ap.add_argument("--gradsync", default="native",
-                    help="gradient sync across ranks: native, lane, "
-                         "lane_pipelined, lane_int8, lane_quorum (the "
-                         "quorum-degraded step), lane_zero1, lane_zero3, "
-                         "or auto (each sync ranked by measured, then "
-                         "modelled cost)")
+                    choices=strategies_for("train_step"),
+                    help="the train step's flavor, a (\"train_step\", "
+                         "name) registry cell; auto ranks each sync by "
+                         "measured, then modelled cost, lane_quorum is "
+                         "the quorum-degraded step")
     ap.add_argument("--gradsync-buckets", type=int, default=0,
                     help="bucket count K; 0 = cost-model auto")
     ap.add_argument("--fsdp-prefetch", type=int, default=0,

@@ -13,6 +13,7 @@ count=<devices>`` (the test process never sets it).
   python tests/_repro_lane_side.py quorum IN.npz OUT.npz     # 4 devices
   python tests/_repro_lane_side.py faults CASES.json OUT.json  # 4 devices
   python tests/_repro_lane_side.py tuning OUT.json CACHE ARGV...  # 4
+  python tests/_repro_lane_side.py plan OUT.json     # 512 devices
 
 ``collectives`` runs every case of ``_collective_grid`` through
 ``repro``'s LaneComm on repro's own conformance meshes, ``zero`` its
@@ -33,7 +34,14 @@ records each run's losses, stdout and the ``ValueError`` it raised;
 at ``SMOKE_LADDER`` and records its cells' keys, then
 ``repro.launch.train.main`` with ARGV and ``--tuning-cache CACHE`` and
 records its losses and the auto-dispatch selections its step recorded.
+``plan`` imports ``repro.launch.dryrun`` before anything else touches
+jax (it sets its own 512-device flag at import) and records
+``list_cells`` and, for every cell of both production meshes under both
+plans, ``plan``'s fsdp / remat / microbatch / gradsync and the global
+shapes and dtypes of ``input_specs``.
 """
+if __name__ == "__main__" and __import__("sys").argv[1:2] == ["plan"]:
+    import repro.launch.dryrun  # noqa: F401 - first: its XLA flag
 import builtins
 import json
 import pathlib
@@ -387,9 +395,36 @@ def tuning(out_path, cache, argv):
         {"keys": keys, "losses": got, "selections": sels}))
 
 
+def plan(out_path):
+    from repro.configs import SHAPES
+    from repro.configs import resolve as jresolve
+    from repro.launch import dryrun as jdry
+    from repro.launch.mesh import make_production_mesh
+    out = {"cells": [list(r) for r in jdry.list_cells()], "plans": {}}
+    for multi in (False, True):
+        mesh = make_production_mesh(multi_pod=multi)
+        for arch, shape, st in jdry.list_cells():
+            if st != "run":
+                continue
+            cfg = jresolve(arch)
+            for plan_name in ("default", "tp0"):
+                run = jdry.plan(cfg, SHAPES[shape], mesh,
+                                plan_name=plan_name)
+                ins = jdry.input_specs(cfg, SHAPES[shape], mesh)
+                out["plans"][f"{arch}|{shape}|{int(multi)}|{plan_name}"] = {
+                    "fsdp": run.fsdp, "remat": run.remat,
+                    "microbatch": run.microbatch, "gradsync": run.gradsync,
+                    "inputs": {k: None if v is None else
+                               [list(v.shape), str(v.dtype)]
+                               for k, v in ins.items()}}
+    pathlib.Path(out_path).write_text(json.dumps(out))
+
+
 if __name__ == "__main__":
     cmd, *rest = sys.argv[1:]
-    if cmd == "collectives":
+    if cmd == "plan":
+        plan(*rest)
+    elif cmd == "collectives":
         collectives(*rest)
     elif cmd == "zero":
         collectives(*rest, cases_of=grid.zero_cases, call=_zero_call)

@@ -987,3 +987,72 @@ def lint_cells_rank(n, N):
     restored = all(getattr(dist, k) is before[k] for k in names)
     return cells, controls, restored
 
+
+
+def train_smoke_rank(root):
+    """``launch.train_smoke``'s sweep on this world (checkpoints under
+    ``root``/sweep); then, for one cell per layout with the same argv, an
+    uninterrupted 3-step run (committing steps 2 and 3), its step 3
+    removed, and the run again, which resumes at step 2 (the learning
+    rate follows ``--steps``, so the sweep's 2-step run is another
+    schedule): ``(failed cells, {cell: the sweep's resumed step-3
+    loss}, {cell: (uninterrupted, resumed) step-3 losses})``."""
+    import shutil
+    import torch.distributed as dist
+    from repro_torch.launch import train, train_smoke
+    fails, resumed = train_smoke.sweep(os.path.join(root, "sweep"))
+    again = {}
+    for name, strategy in (("lane", "lane"), ("lane_zero1", "lane_zero1"),
+                           ("lane_zero3[dense]", "lane_zero3")):
+        ck = os.path.join(root, "again", name)
+        argv = [*train_smoke.cell_argv(strategy, train_smoke.DENSE_ARCH, ck,
+                                       "cpu"), "--steps", "3"]
+        straight = train.run(argv)[0]
+        dist.barrier()
+        if dist.get_rank() == 0:
+            shutil.rmtree(os.path.join(ck, "step_3"))
+        dist.barrier()
+        again[name] = (straight[2], train.run(argv)[0])
+    return fails, resumed, again
+
+
+def planned_steps_rank(cases):
+    """One recorded train step of llama3.2-3b --smoke per case
+    ``(gradsync, tp, batch, seq, remat, microbatch)`` on this world (2
+    pods): per case this rank's ops ``(kind, level, payload bytes, result
+    bytes, wire bytes)`` read with the node size n·tp (the model axis
+    innermost, inside the node), its ``(n, N)`` and its stripe index."""
+    from repro_torch.analysis import record_collectives
+    from repro_torch.comm import CommConfig, LaneComm
+    from repro_torch.configs import RunConfig, resolve
+    from repro_torch.launch import mesh
+    from repro_torch.launch.steps import (build_train_step,
+                                          init_lane_train_state)
+    from repro_torch.models import init_model
+    from repro_torch.optim import AdamWConfig
+    import torch.distributed as dist
+    cfg = resolve("llama3.2-3b", smoke=True)
+    out = []
+    for gradsync, tp, batch, seq, remat, mb in cases:
+        topo, single = mesh.make_lane_topology(batch, 2, tp)
+        run = RunConfig(model=cfg, gradsync=gradsync, model_parallel=tp,
+                        remat=remat, microbatch=mb)
+        comm = LaneComm(topo, CommConfig.from_run(run))
+        step = build_train_step(run, AdamWConfig(), comm, single=single)
+        params, opt, _ = init_lane_train_state(
+            run, init_model(cfg, seed=0, device="cpu"), comm,
+            single=single, device="cpu")
+        rng = np.random.default_rng(0)
+        toks = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (batch, seq + 1)).astype(np.int64))
+        rows = batch // topo.p()
+        r0 = topo.global_rank() * rows
+        with torch.enable_grad(), record_collectives() as rec:
+            step(params, opt, toks[r0:r0 + rows, :-1],
+                 toks[r0:r0 + rows, 1:])
+        foot = rec.footprint(n=topo.n() * tp,
+                             num_devices=dist.get_world_size() // tp)
+        out.append(([(o.kind, o.level, o.payload_bytes, o.result_bytes,
+                      o.wire_bytes) for o in foot.ops], topo.sizes(),
+                    topo.node_rank() * topo.N() + topo.lane_rank()))
+    return out
