@@ -500,6 +500,18 @@ def cuda_ms(fn, reps=50, warmup=5) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_rows(avg) -> list:
+    """The rows of ``avg`` (``key_averages()``) of device operations that
+    took time: kernels, copies and sets, not the device side of a
+    ``record_function`` range (``repro_torch.obs`` spans), which bears
+    its host range's name."""
+    host = {r.key for r in avg
+            if r.device_type != torch.autograd.DeviceType.CUDA}
+    return [r for r in avg
+            if r.device_type == torch.autograd.DeviceType.CUDA
+            and r.self_device_time_total > 0 and r.key not in host]
+
+
 def profiled(run, tries=3, reps=None):
     """``run`` once under torch.profiler: (its CUDA kernel rows, wall ms).
     Now and then CUPTI hands the profiler no device record for a session
@@ -517,9 +529,7 @@ def profiled(run, tries=3, reps=None):
             run()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
-        rows = [r for r in prof.key_averages()
-                if r.device_type == torch.autograd.DeviceType.CUDA
-                and r.self_device_time_total > 0]
+        rows = device_rows(prof.key_averages())
         short = [f"{r.key[:40]} x{r.count}" for r in rows
                  if reps and r.count % reps]
         if rows and not short:
@@ -1656,14 +1666,14 @@ ANNOTATIONS = ("train_step/forward", "train_step/backward",
 
 def report_traced_step(cfg, name, clock) -> None:
     """The traced step: wall, device busy, idle share, device operations,
-    the device time of the forward, the optimizer and the rest (the
-    backward, whose operations run on autograd's own thread, outside the
-    ``train_step/backward`` range), and per layer K1's or K2's forward and
-    its backward's device time."""
+    the device time of the forward, backward and optimizer ranges (the
+    backward's range opens and closes on autograd's device thread, which
+    runs its kernels), the backward again as busy less the forward and
+    the optimizer (a range's device time takes a kernel twice where
+    CUPTI links it to a "Command Buffer Full" record as well), and per
+    layer K1's or K2's forward and its backward's device time."""
     avg = clock.prof.key_averages()
-    kernels = [r for r in avg
-               if r.device_type == torch.autograd.DeviceType.CUDA
-               and r.self_device_time_total > 0 and r.key not in ANNOTATIONS]
+    kernels = device_rows(avg)
     wall = clock.seconds[clock.trace_at] * 1e3
     if not kernels:
         log("train", f"{name} | {cfg.name} traced step: not measured, the "
@@ -1676,13 +1686,14 @@ def report_traced_step(cfg, name, clock) -> None:
            and r.key in ANNOTATIONS}
     dev = lambda k: cpu[k].device_time_total / 1e3 if k in cpu else 0.0
     host = lambda k: cpu[k].cpu_time_total / 1e3 if k in cpu else 0.0
-    fwd, opt = dev("train_step/forward"), dev("train_step/optimizer")
+    fwd, back, opt = (dev(f"train_step/{k}")
+                      for k in ("forward", "backward", "optimizer"))
     top = sorted(kernels, key=lambda r: -r.self_device_time_total)[:5]
     log("train", f"{name} | {cfg.name} traced step: wall {wall:.1f} ms, "
         f"device busy {busy:.1f} ms (idle {1 - busy / wall:.1%}), {ops} "
         f"device operations; device ms: forward {fwd:.1f}, backward "
-        f"{busy - fwd - opt:.1f} (busy less the other two), optimizer "
-        f"{opt:.1f}; host ms (traced): forward "
+        f"{back:.1f} (busy less the other two {busy - fwd - opt:.1f}), "
+        f"optimizer {opt:.1f}; host ms (traced): forward "
         f"{host('train_step/forward'):.1f}, backward "
         f"{host('train_step/backward'):.1f}, optimizer "
         f"{host('train_step/optimizer'):.1f}; most device time (ms): "

@@ -38,7 +38,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from repro_torch import _tree
+from repro_torch import _tree, obs
 from repro_torch.core import collectives as C
 from repro_torch.core.lane import LaneTopology
 from repro_torch.core.costmodel import optimal_prefetch_blocks
@@ -327,8 +327,16 @@ def _grad_prep(comm, grads, shard_ways: int, num_buckets: int):
     """Shared bucketing prologue: resolve K, flatten+pad to K·shard_ways."""
     total = sum(l.numel() for l in _tree.leaves(grads))
     K = resolve_num_buckets(total, shard_ways, num_buckets)
-    flat, spec = _flatten_bucket(grads, pad_to=K * shard_ways)
+    with obs.span("grad_sync/flatten"):
+        flat, spec = _flatten_bucket(grads, pad_to=K * shard_ways)
     return K, flat, spec
+
+
+def _grad_mean(flat, spec, divisor: int):
+    """The synced flat buffer divided by ``divisor`` and copied back into
+    the gradient leaves (their tree)."""
+    with obs.span("grad_sync/unflatten"):
+        return _unflatten_bucket(flat.div_(divisor), spec)
 
 
 @register_impl("grad_sync", "native", cost=costs.native_cost("allreduce"))
@@ -349,7 +357,7 @@ def _gs_lane(comm, grads, *, num_buckets=0):
     topo = comm.topo
     K, flat, spec = _grad_prep(comm, grads, topo.n(), num_buckets)
     bucket_schedule(flat, K, (_rs_node(topo), _ar_lane(topo), _ag_node(topo)))
-    return _unflatten_bucket(flat.div_(topo.p()), spec)
+    return _grad_mean(flat, spec, topo.p())
 
 
 @register_impl("grad_sync", "lane_pipelined",
@@ -358,7 +366,7 @@ def _gs_pipelined(comm, grads, *, num_buckets=0):
     topo = comm.topo
     K, flat, spec = _grad_prep(comm, grads, topo.n(), num_buckets)
     pipelined_allreduce_(flat, topo, num_blocks=K)
-    return _unflatten_bucket(flat.div_(topo.p()), spec)
+    return _grad_mean(flat, spec, topo.p())
 
 
 @register_impl("grad_sync", "lane_quorum", auto_ok=False, feasible=_div_n)
@@ -385,7 +393,7 @@ def _gs_quorum(comm, grads, *, num_buckets=0, contributing=None):
         _ag_node(topo)))
     # the quorum stage already divided by the live lane count; only the
     # node level's factor is left
-    return _unflatten_bucket(flat.div_(topo.n()), spec)
+    return _grad_mean(flat, spec, topo.n())
 
 
 @register_impl("grad_sync", "lane_int8", auto_ok=False)
@@ -395,7 +403,7 @@ def _gs_int8(comm, grads, *, num_buckets=0):
     K, flat, spec = _grad_prep(comm, grads, topo.n(), num_buckets)
     bucket_schedule(flat, K, (_rs_node(topo), _ar_lane_int8(topo),
                               _ag_node(topo)))
-    return _unflatten_bucket(flat.div_(topo.p()), spec)
+    return _grad_mean(flat, spec, topo.p())
 
 
 @register_impl("grad_sync", "lane_zero1", auto_ok=False)

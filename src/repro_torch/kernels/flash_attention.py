@@ -26,6 +26,8 @@ import math
 
 import torch
 
+from repro_torch import obs
+
 from . import ref
 from ._build import Library
 
@@ -165,7 +167,7 @@ class FlashAttentionFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out = ctx.saved_tensors
-        with torch.profiler.record_function("attention_backward"):
+        with obs.span("attention_backward"):
             dq, dk, dv = attention_backward(q, k, v, out, dout,
                                             causal=ctx.causal,
                                             window=ctx.window)

@@ -28,6 +28,8 @@ import ctypes
 
 import torch
 
+from repro_torch import obs
+
 from . import ref
 from ._build import Library
 
@@ -220,7 +222,7 @@ class SSDFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, dfinal):
-        with torch.profiler.record_function("ssd_backward"):
+        with obs.span("ssd_backward"):
             grads = ssd_backward(*ctx.saved_tensors, dy, dfinal,
                                  chunk=ctx.chunk,
                                  needs=ctx.needs_input_grad[:6])

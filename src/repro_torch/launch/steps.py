@@ -49,23 +49,41 @@ Unlike ``repro``, which is functional, every step updates its state in
 place: at llama3.2-3b each functional copy is 12.85 GB of f32.  The
 flat AdamW runs over chunks, so its temporaries stay small.
 
-Forward, backward, gradient sync and optimizer run inside
-``torch.profiler`` annotations (``train_step/forward``,
-``train_step/backward``, ``train_step/grad_sync``,
-``train_step/optimizer``), which cost a few microseconds a step when no
-profiler is on.
+Every flavor's step runs inside ``repro_torch.obs`` spans, which cost
+one flag check each when no profiler records:
+
+  train_step              the whole call (``build_train_step`` wraps
+                          every flavor's ``step``)
+  train_step/forward      the loss
+  train_step/backward     the backward of ``torch.autograd.grad``, from
+                          its first node to its end, on the thread that
+                          runs it (autograd's device thread for CUDA
+                          tensors: ``obs.backward_until_end``), so that
+                          the range holds the backward's kernels
+  train_step/grad_sync    the loss mean and the gradient sync
+  train_step/loss_mean    the loss's mean over the ranks (``_mean_loss``,
+                          ``_node_mean`` and the quorum mean): the small
+                          all-reduce that is the first collective after
+                          the backward; its device time is a lower bound
+                          on the wait for the slowest rank, whose rest
+                          the sync's NCCL kernels hold
+  train_step/optimizer    AdamW
+
+and inside them the sync's (``optim/gradsync.py``), the MoE block's
+(``models/moe.py``) and the kernels' backwards (``attention_backward``,
+``ssd_backward``).
 """
 from __future__ import annotations
 
+import functools
 import math
 import sys
 
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
-from repro_torch import _tree
+from repro_torch import _tree, obs
 from repro_torch._device import resolve_device
 from repro_torch.checkpoint import (REPLICATED, CheckpointCorruptError,
                                     Zero1CheckpointLayout,
@@ -167,11 +185,11 @@ def _value_and_grad(lf):
     loss does not reach it), as ``jax.value_and_grad`` gives them."""
     def vg(params, tokens, labels, extra):
         leaves = _tree.leaves(params)
-        with record_function("train_step/forward"):
+        with obs.span("train_step/forward"):
             loss = lf(params, tokens, labels, extra)
-        with record_function("train_step/backward"):
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                        materialize_grads=True)
+        grads = torch.autograd.grad(
+            obs.backward_until_end("train_step/backward", loss), leaves,
+            allow_unused=True, materialize_grads=True)
         return loss.detach(), _tree.unflatten(params, grads)
     return vg
 
@@ -237,12 +255,24 @@ def build_train_step(run: RunConfig, opt: AdamWConfig,
     of the global batch.  ``single``: the topology has one batch axis,
     where the replicated strategies degrade to ``"native"``,
     ``lane_zero1`` to the replicated step, and ``lane_zero3`` raises."""
-    return get_impl("train_step", run.gradsync).fn(run, opt, comm, single)
+    return _spanned(get_impl("train_step", run.gradsync).fn(
+        run, opt, comm, single))
+
+
+def _spanned(step):
+    """``step``, each call of it under the span ``train_step``; its
+    attributes (``full_params``, ...) are copied to the wrapper."""
+    @functools.wraps(step)
+    def spanned(*args, **kw):
+        with obs.span("train_step"):
+            return step(*args, **kw)
+    return spanned
 
 
 def _mean_loss(comm: LaneComm, loss):
-    return comm.allreduce(loss.reshape(1), strategy="native")[0] \
-        / comm.topo.p()
+    with obs.span("train_step/loss_mean"):
+        return comm.allreduce(loss.reshape(1), strategy="native")[0] \
+            / comm.topo.p()
 
 
 def _build_replicated(run, opt, comm, single):
@@ -255,12 +285,12 @@ def _build_replicated(run, opt, comm, single):
     def step(params, opt_state, tokens, labels, extra=None):
         loss, grads = vg(params, tokens, labels, extra)
         if comm is not None:
-            with record_function("train_step/grad_sync"):
+            with obs.span("train_step/grad_sync"):
                 loss = _mean_loss(comm, loss)
                 if tp_comm is not None:
                     _tp_assemble_tree(grads, tp_comm)
                 grads = comm.grad_sync(grads, strategy=eff)
-        with record_function("train_step/optimizer"):
+        with obs.span("train_step/optimizer"):
             params, opt_state = adamw_update(opt, grads, opt_state, params)
         return loss, params, opt_state
     step.full_params = lambda params: params
@@ -299,7 +329,7 @@ def _build_quorum(run, opt, comm, single=True):
         loss, grads = vg(params, tokens, labels, extra)
         q = 0 if comm is None else comm.topo.lane_rank()
         c = 1.0 if quorum_mask is None else float(quorum_mask[q])
-        with record_function("train_step/grad_sync"):
+        with obs.span("train_step/grad_sync"):
             if comm is None:
                 # a lane of one: sum(x·c) / max(c, 1)
                 den = max(c, 1.0)
@@ -308,12 +338,13 @@ def _build_quorum(run, opt, comm, single=True):
                     g.mul_(c).div_(den)
             else:
                 topo = comm.topo
-                if topo.n() > 1:
-                    loss = _node_mean(topo, loss)
-                loss = quorum_mean(loss, topo, c)
+                with obs.span("train_step/loss_mean"):
+                    if topo.n() > 1:
+                        loss = _node_mean(topo, loss)
+                    loss = quorum_mean(loss, topo, c)
                 grads = comm.grad_sync(grads, strategy="lane_quorum",
                                        contributing=c)
-        with record_function("train_step/optimizer"):
+        with obs.span("train_step/optimizer"):
             params, opt_state = adamw_update(opt, grads, opt_state, params)
         return loss, params, opt_state
     step.full_params = lambda params: params
@@ -463,14 +494,14 @@ def _build_zero1(run, opt, comm, single=False):
         K = resolve_num_buckets(sum(p.numel() for p in _tree.leaves(params)),
                                 n, run.gradsync_buckets)
         with torch.no_grad():
-            with record_function("train_step/grad_sync"):
+            with obs.span("train_step/grad_sync"):
                 loss = _mean_loss(comm, loss)
                 g, _ = comm.grad_sync(grads, strategy="lane_zero1",
                                       num_buckets=K)
                 del grads
                 gsq = _sq_sum(g).reshape(1)
                 dist.all_reduce(gsq, group=topo.node_group)
-            with record_function("train_step/optimizer"):
+            with obs.span("train_step/optimizer"):
                 pflat, pspec = _flatten_bucket(params, pad_to=K * n)
                 mine = zero1_param_shard(pflat, topo, K)
                 opt_state["count"] += 1
@@ -658,7 +689,7 @@ def _build_zero3(run, opt, comm, single=False):
                                for lp in _expert_rows(params["experts"])]
         loss, g = vg(diff, tokens, labels, extra)
         with torch.no_grad():
-            with record_function("train_step/grad_sync"):
+            with obs.span("train_step/grad_sync"):
                 loss = _mean_loss(comm, loss)
                 g_e = gather_e.transpose(
                     [a.to(t.dtype) for a, t in
@@ -696,7 +727,7 @@ def _build_zero3(run, opt, comm, single=False):
                 if have_repl:
                     gsq = gsq + global_norm(g_repl) ** 2
                 gnorm = gsq.sqrt()
-            with record_function("train_step/optimizer"):
+            with obs.span("train_step/optimizer"):
                 scale = _clip_scale(opt, gnorm)
                 if have_repl:
                     adamw_update(opt, g_repl, opt_state["rest"], repl,

@@ -14,12 +14,20 @@ An assignment past its expert's capacity goes to a trash slot ``E·C``
 and contributes nothing.  The expert FFN is a batched product over the
 (B, E, C, d) slot buffer, as in ``repro``, which computes it outside any
 Pallas kernel; dispatch and combine are gathers and scatters.
+
+While a profiler records, both blocks run under the ``repro_torch.obs``
+span ``moe/forward`` and their backward under ``moe/backward``, and
+``_dispatch_buffer`` counts ``moe.assigned`` (B·T·K) and ``moe.kept``
+(the assignments within capacity).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from .layers import _act, dense_init, torch_dtype
 
@@ -82,6 +90,8 @@ def _dispatch_buffer(p: dict, x, cfg: ModelConfig):
     rank = torch.empty_like(sort_idx).scatter_(
         1, sort_idx, pos - start.gather(1, sorted_e))    # back to (t, k) order
     keep = rank < C                                      # overflow dropped
+    obs.count("moe.assigned", B * TK)
+    obs.count("moe.kept", keep)
     slot = torch.where(keep, flat_e * C + rank, E * C)   # E*C = trash slot
 
     xe = x.repeat_interleave(K, dim=1) if K > 1 else x   # (B, TK, d)
@@ -107,6 +117,19 @@ def _combine(y, slot, keep, top_p, x, cfg: ModelConfig):
     return (gathered * w[..., None]).reshape(B, T, K, d).sum(dim=2)
 
 
+def _spanned(block):
+    """``block`` under ``moe/forward``, its backward under
+    ``moe/backward`` (``obs.backward_span`` from its output to ``x``)."""
+    @functools.wraps(block)
+    def spanned(p, x, cfg, **kw):
+        with obs.span("moe/forward"):
+            x, close = obs.backward_span("moe/backward", x)
+            out, aux = block(p, x, cfg, **kw)
+            return close(out), aux
+    return spanned
+
+
+@_spanned
 def moe_block(p: dict, x, cfg: ModelConfig):
     """Capacity-based dispatch; returns ``(out (B, T, d), aux_loss)``."""
     buf, slot, keep, top_p, aux, _ = _dispatch_buffer(p, x, cfg)
@@ -240,6 +263,7 @@ def _route_start(comm, x, strategy):
     return lambda: _Routed.apply(x, work, comm, strategy)
 
 
+@_spanned
 def moe_block_ep(p: dict, x, cfg: ModelConfig, *, comm, experts=None,
                  ep_blocks: int = 1, strategy=None):
     """Expert-parallel MoE block: the paper's decomposed all-to-all over

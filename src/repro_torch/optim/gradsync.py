@@ -27,6 +27,15 @@ of llama3.2-3b's gradients is 12.8 GB:
 So a sync holds one f32 copy of the gradients beyond the gradients
 themselves.
 
+Each stage carries a name (``_stage``), and ``bucket_schedule`` runs a
+stage's launch and its finish under the ``repro_torch.obs`` span
+``grad_sync/<name>``: ``rs_node``, ``ar_lane``, ``ag_node``,
+``ar_lane_int8``, ``rs_lane`` and ``ar_lane_quorum``
+(``runtime.straggler``), so each hop's NCCL kernels are attributed to
+the hop, also while two waves overlap.  The strategies in
+``comm/impls.py`` run the flatten under ``grad_sync/flatten`` and the
+mean's divide and the unflatten under ``grad_sync/unflatten``.
+
 The ZeRO layouts are ``repro``'s: ``lane_zero1`` keeps the bucket-major
 (K, n, s) node stripes (``zero1_param_shard`` / ``zero1_unshard``),
 ``lane_zero3`` the (B, n·N, s) stripes indexed ``node_rank·N +
@@ -40,7 +49,7 @@ from typing import Callable, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from repro_torch import _tree
+from repro_torch import _tree, obs
 from repro_torch.core.costmodel import optimal_num_buckets
 from repro_torch.core.lane import LaneTopology
 
@@ -151,7 +160,9 @@ def bucket_schedule(flat, num_buckets: int,
     callable: it issues its collective asynchronously and ``finish``
     waits for it.  Each wave's finishes run at the end of the wave, so
     the stages of one wave (different buckets, different groups) are in
-    flight together.  Returns the bucket views.
+    flight together.  A stage named by ``_stage`` runs, launch and
+    finish, under the span ``grad_sync/<name>``; an unnamed one under
+    none.  Returns the bucket views.
     """
     K = num_buckets
     if flat.shape[0] % K:
@@ -159,22 +170,31 @@ def bucket_schedule(flat, num_buckets: int,
             f"flat dim {flat.shape[0]} not divisible by num_buckets={K}")
     vals = list(flat.view(K, -1).unbind(0))
     S = len(stages)
+    spans = [getattr(st, "span", None) for st in stages]
     done = [0] * K                     # stages applied so far, per bucket
     for wave in range(K + S - 1):
         pending = []
         for b in range(min(wave, K - 1), max(wave - S, -1), -1):
             s = wave - b
             if 0 <= s < S and done[b] == s:
-                pending.append(stages[s](vals[b]))
+                with obs.span(spans[s]):
+                    pending.append((spans[s], stages[s](vals[b])))
                 done[b] += 1
-        for finish in pending:
+        for name, finish in pending:
             if finish is not None:
-                finish()
+                with obs.span(name):
+                    finish()
     if not all(d == S for d in done):
         raise RuntimeError(
             f"bucket schedule incomplete: stage counts {done}, "
             f"expected {S} each")
     return vals
+
+
+def _stage(name: str, stage):
+    """``stage``, which ``bucket_schedule`` runs under ``grad_sync/<name>``."""
+    stage.span = f"grad_sync/{name}"
+    return stage
 
 
 def _stripe(v, topo: LaneTopology):
@@ -188,7 +208,7 @@ def _rs_node(topo: LaneTopology):
     def stage(v):
         return dist.reduce_scatter_tensor(
             _stripe(v, topo), v, group=topo.node_group, async_op=True).wait
-    return stage
+    return _stage("rs_node", stage)
 
 
 def _ag_node(topo: LaneTopology):
@@ -196,7 +216,7 @@ def _ag_node(topo: LaneTopology):
     def stage(v):
         return dist.all_gather_into_tensor(
             v, _stripe(v, topo), group=topo.node_group, async_op=True).wait
-    return stage
+    return _stage("ag_node", stage)
 
 
 def _ar_lane(topo: LaneTopology):
@@ -204,7 +224,7 @@ def _ar_lane(topo: LaneTopology):
     def stage(v):
         return dist.all_reduce(_stripe(v, topo), group=topo.lane_group,
                                async_op=True).wait
-    return stage
+    return _stage("ar_lane", stage)
 
 
 def _ar_lane_int8(topo: LaneTopology):
@@ -231,7 +251,7 @@ def _ar_lane_int8(topo: LaneTopology):
                 out = out + decompress_int8(qi, si, n)
             stripe.copy_(out)
         return finish
-    return stage
+    return _stage("ar_lane_int8", stage)
 
 
 
@@ -245,7 +265,7 @@ def _rs_lane(topo: LaneTopology):
         return dist.reduce_scatter_tensor(
             stripe[j * s:(j + 1) * s], stripe, group=topo.lane_group,
             async_op=True).wait
-    return stage
+    return _stage("rs_lane", stage)
 
 
 # ---------------------------------------------------------------------------

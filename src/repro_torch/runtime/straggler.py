@@ -49,7 +49,7 @@ def quorum_stage(topo: LaneTopology, contributing, *, device=None):
     power-of-two pod count is bit-identical to the ``lane`` strategy's
     sum followed by its deferred division.  ``device``: where the
     payload lives (default: the bit's device)."""
-    from repro_torch.optim.gradsync import _stripe
+    from repro_torch.optim.gradsync import _stage, _stripe
     c = _bit(contributing, device)
     den = _live(c, topo)
 
@@ -62,7 +62,7 @@ def quorum_stage(topo: LaneTopology, contributing, *, device=None):
             work.wait()
             s.div_(den.to(s.dtype))
         return finish
-    return stage
+    return _stage("ar_lane_quorum", stage)
 
 
 def quorum_mean(x: torch.Tensor, topo: LaneTopology, contributing):

@@ -46,9 +46,12 @@ def test_build_train_step_resolves_through_the_registry(monkeypatch):
     takes it up (no list to edit)."""
     built = []
 
+    def throwaway_step(*args):
+        return "the throwaway step"
+
     def builder(run, opt, comm, single):
         built.append((run.gradsync, comm, single))
-        return "the throwaway step"
+        return throwaway_step
 
     def sync(comm, grads, **kw):
         return grads
@@ -58,7 +61,9 @@ def test_build_train_step_resolves_through_the_registry(monkeypatch):
                             ImplEntry(coll, "throwaway", fn, auto_ok=False))
     run = RunConfig(model=resolve("llama3.2-3b", smoke=True),
                     gradsync="throwaway")
-    assert steps.build_train_step(run, AdamWConfig()) == "the throwaway step"
+    step = steps.build_train_step(run, AdamWConfig())
+    assert step.__wrapped__ is throwaway_step
+    assert step() == "the throwaway step"
     assert built == [("throwaway", None, True)]
     assert ("throwaway", "throwaway", "dense", "llama3.2-3b") in \
         train_smoke.cells()
